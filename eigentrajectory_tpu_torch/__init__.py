@@ -1,0 +1,29 @@
+"""EigenTrajectory in PyTorch for one NVIDIA H100.
+
+The PyTorch counterpart of `eigentrajectory_tpu`. Module names follow the JAX
+package so that each part can be found beside its reference; the JAX package
+stays the reference every module here is tested against.
+
+Layer map (the sequenced evaluation path of ET-STGCNN):
+  config          typed experiment configuration
+  data            trajectory windowing + padded scene batches
+  etspace         normalizer / descriptor projection / anchor refine / facade
+  models          the predictor registry (stgcnn)
+  metrics         min-of-S ADE/FDE/TCC/COL with a leading scene axis
+  ops             hand-written CUDA kernels with their plain PyTorch versions
+  interop         flax msgpack checkpoints -> PyTorch modules and tensors
+  train           evaluation engine (`ETTorchTrainer.test()`)
+
+Nothing here imports JAX.
+"""
+
+import torch
+
+# The JAX package runs every matmul at "highest" f32 precision
+# (eigentrajectory_tpu/train/trainer.py:37-40). On the card a f32 matmul is
+# full f32 by default, but a f32 convolution goes through cuDNN in TF32;
+# turn both off so the convs of the STGCNN keep f32 accuracy.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

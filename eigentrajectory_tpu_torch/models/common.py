@@ -1,0 +1,86 @@
+"""Shared building blocks for the predictors.
+
+The counterparts of the layers in `eigentrajectory_tpu/models/common.py`.
+Tensors carry the scene axis first: where the JAX package calls a layer on
+one (1, C, H, W) scene under `vmap`, these layers take a (B, C, H, W) block
+with one scene per batch row and a (B, W) pedestrian validity mask.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+_Pair = Union[int, Tuple[int, int]]
+
+
+class TorchConv2d(nn.Conv2d):
+    """Conv2d over NCHW with OIHW `weight` and `bias`; torch's default init,
+    the one the JAX layer reproduces."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: _Pair,
+                 stride: _Pair = 1, padding: _Pair = 0, dilation: _Pair = 1,
+                 use_bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, bias=use_bias)
+
+
+class PReLU(nn.Module):
+    """PReLU with one shared slope, `where(x >= 0, x, a * x)`."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight * x)
+
+
+class MaskedBatchNorm2d(nn.Module):
+    """BatchNorm2d over (B, C, H, W) scene blocks with a (B, W) ped mask.
+
+    Eval mode normalizes with the running statistics. Train mode normalizes
+    each scene with its own biased statistics over (H, valid W), as the JAX
+    layer does on one vmapped scene, and moves the running statistics
+    (momentum 0.1, unbiased variance) by the mean of the per-scene updates.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            mean = self.running_mean[None, :, None, None]
+            var = self.running_var[None, :, None, None]
+        else:
+            if mask is None:
+                m = torch.ones_like(x[:, :1, :1, :])
+            else:
+                m = mask.to(x.dtype)[:, None, None, :]           # (B, 1, 1, W)
+            cnt = x.shape[2] * torch.clamp_min(m.sum(dim=3, keepdim=True), 1.0)
+            mean = (x * m).sum(dim=(2, 3), keepdim=True) / cnt   # (B, C, 1, 1)
+            var = (((x - mean) ** 2) * m).sum(dim=(2, 3), keepdim=True) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                m_ = self.momentum
+                self.running_mean.mul_(1 - m_).add_(m_ * mean.mean(dim=0).flatten())
+                self.running_var.mul_(1 - m_).add_(m_ * unbiased.mean(dim=0).flatten())
+        inv = torch.rsqrt(var + self.eps)
+        return (x - mean) * inv * self.weight[None, :, None, None] + \
+            self.bias[None, :, None, None]
+
+
+def zero_invalid(x: torch.Tensor, valid: torch.Tensor, axis: int) -> torch.Tensor:
+    """Zero features at invalid ped slots: x (B, ...) with the ped axis at
+    `axis`, valid (B, N) bool."""
+    shape = [1] * x.ndim
+    shape[0] = x.shape[0]
+    shape[axis] = x.shape[axis]
+    return x * valid.to(x.dtype).reshape(shape)

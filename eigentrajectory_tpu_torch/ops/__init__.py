@@ -1,0 +1,1 @@
+from .recon import fused_recon_metrics, fused_recon_metrics_plain

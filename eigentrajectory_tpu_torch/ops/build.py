@@ -1,0 +1,83 @@
+"""Build the CUDA sources of `ops/csrc/` at first use and load them.
+
+Each source is compiled by `nvcc` into a shared library with a plain C
+interface, named by a hash of the source and the flags, under
+`eigentrajectory_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
+A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of eigentrajectory_tpu_torch "
+                       "are built from source at first use and need the CUDA toolkit")
+
+
+def library_path(source: str) -> str:
+    """Where the library for `source` (a file name under csrc/) is built."""
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
+
+
+def build(source: str) -> str:
+    """Compile `source` unless its library exists; return the library path.
+
+    The compiler's report (registers, shared memory, spills) is written
+    beside the library as `<name>.log`.
+    """
+    out = library_path(source)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)   # atomic: concurrent builders see a whole file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of `source`, once per process."""
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(build(source))
+            _loaded[source] = lib
+        return lib

@@ -40,3 +40,8 @@ def make_scene(rng, n_ped=6, obs_len=8, pred_len=12, speed=1.0):
 @pytest.fixture
 def scene(rng):
     return make_scene(rng)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips where there is none)")

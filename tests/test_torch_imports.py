@@ -1,0 +1,36 @@
+"""Static check: the port and chip_smoke.py import nothing of JAX, flax,
+optax or the JAX package (whose name the port's name begins with)."""
+import ast
+import os
+import re
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_FORBIDDEN = re.compile(r"^(jax|flax|optax|eigentrajectory_tpu)(\.|$)")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "eigentrajectory_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(root):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_port_imports_no_jax():
+    paths = _port_sources()
+    assert len(paths) > 10 and os.path.exists(paths[0])
+    line_re = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|eigentrajectory_tpu)\b(?!_torch)",
+                         re.M)
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert not line_re.search(src), path
+        for node in ast.walk(ast.parse(src)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            for name in names:
+                assert not _FORBIDDEN.match(name), (path, name)
