@@ -6,26 +6,41 @@ Run from the root of the repository on a machine with an NVIDIA H100 and the
 CUDA toolkit. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernel from `eigentrajectory_tpu_torch/ops/csrc`
-   and holds `fused_recon_metrics` against its plain PyTorch version on the
-   card at the main path's shape (k=6, S=20, T=12, N=320*57), at a ragged N,
-   and on a case with sca == 0, an FDE tie and a constant-GT pedestrian
-   (atol = rtol = 1e-4: the sums run in another order);
-3. drives the main path, `ETTorchTrainer.test()` of ET-STGCNN on the hotel
-   configuration with the committed hotel checkpoint, on a synthetic test
-   split sized like hotel's (301 scenes, ~1,050 pedestrians) in one padded
-   block of 320 x 57 slots; checks that the kernel ran, that the metrics are
-   finite, and that the same run on the CPU agrees within 1e-4;
-4. times the kernel, its plain version and test() with CUDA events and the
-   host clock, beside the least time the card could take for the kernel's
-   work;
-5. prints a JSON line with the kernel's numbers, then as its last line
+2. builds the port's two CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
+   (one nvcc each, started together) and prints their ptxas register lines;
+3. holds each kernel against its plain PyTorch version on the card
+   (atol = rtol = 1e-4: the sums run in another order):
+   `fused_recon_metrics` at the eval shape (k=6, S=20, T=12, N=320*57), at a
+   ragged N, and on a case with sca == 0, an FDE tie and a constant-GT
+   pedestrian; `fused_reconstruct` at the serving shape (N=301*128), at a
+   ragged N, and on the sca == 0 case, which must reconstruct exactly to its
+   origin;
+4. drives the eval path, `ETTorchTrainer.test()`, of ET-STGCNN (hotel
+   configuration, committed hotel checkpoint) and of ET-SGCN (zara1, committed
+   zara1 checkpoint) on a synthetic test split sized like hotel's (301
+   scenes, ~1,050 pedestrians) in one padded block of 320 x 57 slots; checks
+   that `fused_recon_metrics` ran, that the metrics are finite, and that the
+   same run on the CPU agrees within 1e-4;
+5. drives the serving path, `ETPredictor.predict()`, of both models from the
+   same checkpoints on three requests: (a) one scene of 5 pedestrians, (b)
+   the whole synthetic split in one request with its scene ids (301 scenes
+   in 128-slot rows), (c) one scene of 150 pedestrians (256 slots). Each
+   request checks that `fused_reconstruct` ran, that the futures are finite,
+   and that the card is as close to the exact answer (a float64 run of the
+   same code on the CPU) as the CPU's own float32 run, within 1e-4 more; on
+   (a) and (b) the card must also agree with the CPU's float32 run within
+   1e-4, and on (a) a scene predicted alone must equal its rows in a
+   two-scene request;
+6. times both kernels and their plain versions with CUDA events beside the
+   least time the card could take for their work, and test() and predict()
+   (request (b)) on the host clock;
+7. prints a JSON line with both kernels' numbers, then as its last line
    {"ok": true, "device": {...}}.
 
-`--profile OUT_DIR` also profiles one test() run with torch.profiler and
-writes its table to OUT_DIR/profile_test.txt. Any failure raises and the
-exit code is not 0; without a CUDA device the script fails before it
-prints a result.
+`--profile OUT_DIR` also profiles one test() and one predict() of each model
+with torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and
+prints the device time of each span. Any failure raises and the exit code is
+not 0; without a CUDA device the script fails before it prints a result.
 """
 import json
 import math
@@ -33,17 +48,27 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CFG_PATH = os.path.join(REPO, "configs", "eigentrajectory-stgcnn-hotel.json")
+CKPT_DIR = os.path.join(REPO, "checkpoints")
+MODELS = (("stgcnn", "eigentrajectory-stgcnn-hotel.json"),
+          ("sgcn", "eigentrajectory-sgcn-zara1.json"))
 ATOL = RTOL = 1e-4
 K, S, T = 6, 20, 12
 EVAL_BATCH, N_MAX = 320, 57            # one padded block, as bench.py times it
 N_MAIN = EVAL_BATCH * N_MAX
+BUCKET = 128                           # ETPredictor's default slots per scene
+N_SCENES = 301
+N_SERVE = N_SCENES * BUCKET            # flat slots of request (b)
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 rate and f32
 # rate outside the tensor cores, at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# Each kernel's span in the trainer and the predictor, and a part of its
+# name in the profiler's trace.
+KERNEL_SPANS = {"eval.recon_metrics": "recon_metrics_kernel",
+                "serve.reconstruct": "reconstruct_kernel"}
 
 
 def _card_line():
@@ -87,7 +112,8 @@ def _on(case, device):
 
 
 def _check_kernel(recon, case, label):
-    """Kernel vs plain version on the card; returns the max abs error.
+    """fused_recon_metrics vs its plain version on the card; returns the max
+    abs error and the kernel's outputs.
 
     TCC scores the first sample of minimal FDE, so it is compared where that
     sample wins by more than f32 rounding (at a closer race the two versions
@@ -109,9 +135,26 @@ def _check_kernel(recon, case, label):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL,
                                    msg=lambda m: f"{label} {name}: {m}")
         err = max(err, float((g - w).abs().max()))
-    print(f"kernel check {label}: N={case['c_m'].shape[1]} max_abs_err={err:.3e} "
-          f"(atol=rtol={ATOL}; TCC on {int(clear.sum())} peds with a clear best sample)",
-          flush=True)
+    print(f"fused_recon_metrics check {label}: N={case['c_m'].shape[1]} "
+          f"max_abs_err={err:.3e} (atol=rtol={ATOL}; TCC on {int(clear.sum())} peds "
+          f"with a clear best sample)", flush=True)
+    return err, got
+
+
+def _check_reconstruct(recon, case, label):
+    """fused_reconstruct vs its plain version on the card; returns the max
+    abs error and the kernel's output."""
+    import torch
+
+    args = _on(case, "cuda")[:-1]
+    got = recon.fused_reconstruct(*args)
+    want = recon.fused_reconstruct_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL,
+                               msg=lambda m: f"fused_reconstruct {label}: {m}")
+    err = float((got - want).abs().max())
+    print(f"fused_reconstruct check {label}: N={case['c_m'].shape[1]} "
+          f"max_abs_err={err:.3e} (atol=rtol={ATOL})", flush=True)
     return err, got
 
 
@@ -130,53 +173,206 @@ def _event_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def _bound_ms(case):
-    """Least time for the kernel's work on these inputs: each input byte the
-    outputs need read once (the coefficients of the selected branch only),
-    each output byte written once, against the memory rate; the f32
-    operations against the f32 rate. Returns (ms, "bytes" or "operations")."""
-    n = case["c_m"].shape[1]
-    moving = int(case["mask"].sum())
-    read = (K * S * 4 * n                     # c of the branch each ped uses
-            + 2 * T * K * 4 * (2 if 0 < moving < n else 1)
-            + n * (T * 2 * 4 + 8 + 16 + 4 + 1))   # gt, ori, rot, sca, mask
-    write = S * n * T * 2 * 4 + 3 * n * 4
-    # per ped and sample: 2T*K FMAs, scale, rotate+translate (4 mul/add + 2
-    # add per step), distance (5 per step); TCC per ped ~ 8 per step.
-    ops = n * S * T * (2 * 2 * K + 2 + 6 + 5) + n * T * 8
+def _bound(read, write, ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the memory
+    rate and the f32 operations over the f32 rate."""
     t_bytes = (read + write) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _profile(tr, card, wall_s, out_dir):
-    """One test() under torch.profiler: the table goes to
-    out_dir/profile_test.txt, the kernel time of each span of the eval step
-    and the device's busy share of the unprofiled median wall time to
-    stdout."""
+def _recon_bytes_in(case):
+    """Input bytes the trajectories need: the coefficients of the branch each
+    ped uses, the bases of the branches in use, ori, rot, sca and mask."""
+    n = case["c_m"].shape[1]
+    moving = int(case["mask"].sum())
+    return (K * S * 4 * n + 2 * T * K * 4 * (2 if 0 < moving < n else 1)
+            + n * (8 + 16 + 4 + 1))
+
+
+def _recon_metrics_bound_ms(case):
+    """Least time for fused_recon_metrics on these inputs; each input byte
+    read once (+ gt), each output byte written once. Per ped and sample: 2T*K
+    FMAs, scale, rotate+translate (4 mul/add + 2 add per step), distance (5
+    per step); TCC per ped ~ 8 per step."""
+    n = case["c_m"].shape[1]
+    read = _recon_bytes_in(case) + n * T * 2 * 4
+    write = S * n * T * 2 * 4 + 3 * n * 4
+    return _bound(read, write, n * S * T * (2 * 2 * K + 2 + 6 + 5) + n * T * 8)
+
+
+def _reconstruct_bound_ms(case):
+    """Least time for fused_reconstruct on these inputs: the recon bytes in,
+    the (S, N, T, 2) trajectories out; per ped, sample and step 2*2*K FMAs,
+    the scale and the rotate+translate."""
+    n = case["c_m"].shape[1]
+    return _bound(_recon_bytes_in(case), S * n * T * 2 * 4, n * S * T * (2 * 2 * K + 2 + 6))
+
+
+def _walkers(n, seed):
+    """One scene of n pedestrians drawn as make_synthetic_data draws them:
+    (n, obs_len, 2) float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(20)[None, :, None]
+    traj = (rng.normal(size=(n, 1, 2)) * 5 + rng.normal(size=(n, 1, 2)) * t * 0.4
+            + 0.05 * np.cumsum(rng.normal(size=(n, 20, 2)), axis=1))
+    return traj[:, :8].astype(np.float32)
+
+
+def _host_times(fn, card, label, n_traj):
+    """Median and p80 of 50 host-clock runs of fn (ending in a synchronize)
+    after 5 warm-up runs; printed with the card; returns the median in s."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    walls = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    median, p80 = walls[len(walls) // 2], walls[39]   # 10 samples above p80
+    print(f"[{card}] {label} wall over {len(walls)} runs: median {median * 1e3:.3f} ms, "
+          f"p80 {p80 * 1e3:.3f} ms, min {walls[0] * 1e3:.3f} ms; "
+          f"{n_traj / median:.1f} trajectories/s at the median, {n_traj / p80:.1f} at p80",
+          flush=True)
+    return median
+
+
+def _profile(label, fn, card, wall_s, out_dir):
+    """One run of fn under torch.profiler: the table goes to
+    out_dir/profile_<label>.txt; the device's busy share of the unprofiled
+    median wall time and the kernel time of each span go to stdout.
+
+    The profiler links a kernel to a range only through the PyTorch operator
+    that launched it. A kernel launched through ctypes is in the trace, by
+    name and with its device time, but linked to no operator, so no range
+    counts it (with nvcc's static cudart and with the shared one alike).
+    Each hand-written kernel's span therefore reads its kernel's device time
+    by name from the trace, and the run fails if the trace does not hold it.
+    """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.test(eval_batch=EVAL_BATCH)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    # Kernel time launched inside each span of the trainer (the CPU-side range;
-    # its GPU-side twin measures the range's extent on the device timeline).
+    kernels = {e.key: e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    busy_us = sum(kernels.values())
+    # Kernel time launched inside each span (the CPU-side range; its GPU-side
+    # twin measures the range's extent on the device timeline).
     spans = {}
     for e in prof.events():
-        if e.name.startswith("eval.") and e.device_type == DeviceType.CPU:
+        if e.name.startswith(("eval.", "serve.")) and e.device_type == DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total
+    attributed = {}
+    for span, kernel in KERNEL_SPANS.items():
+        if span in spans:
+            attributed[span] = spans[span]
+            spans[span] = sum(us for name, us in kernels.items() if kernel in name)
+            if spans[span] <= 0:
+                raise AssertionError(f"profile {label}: no device time for {kernel} in the trace")
     os.makedirs(out_dir, exist_ok=True)
     table = events.table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "profile_test.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
         f.write(f"{card}\n{table}\n")
-    print(f"[{card}] profiled test(): device busy {busy_us / 1e3:.3f} ms = "
+    ms = lambda d: json.dumps({k: round(v / 1e3, 4) for k, v in sorted(d.items())})
+    print(f"[{card}] profiled {label}: device busy {busy_us / 1e3:.3f} ms = "
           f"{busy_us / 1e3 / (wall_s * 1e3):.1%} of the median wall; kernel ms by span "
-          + json.dumps({k: round(v / 1e3, 4) for k, v in sorted(spans.items())}), flush=True)
+          f"{ms(spans)}; the profiler's own attribution of the kernel spans {ms(attributed)}",
+          flush=True)
+
+
+def _check_test(name, tr, tr_cpu, recon):
+    """test() on the card with the launch count reset just before it, and the
+    same run on the CPU; returns (means, launches)."""
+    import torch
+
+    recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+    res = tr.test(eval_batch=EVAL_BATCH)
+    torch.cuda.synchronize()
+    launches = recon.LAUNCHES
+    print(f"{name} test() on the card: {res}, fused_recon_metrics launches={launches}",
+          flush=True)
+    if launches < 1:
+        raise AssertionError(f"{name} test() did not launch fused_recon_metrics")
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"{name}: non-finite metrics {res}")
+    res_cpu = tr_cpu.test(eval_batch=EVAL_BATCH)
+    print(f"{name} test() on the CPU:  {res_cpu}", flush=True)
+    for key, want in res_cpu.items():
+        if not abs(res[key] - want) <= ATOL + RTOL * abs(want):
+            raise AssertionError(f"{name} {key}: card {res[key]} vs CPU {want}")
+    return res, launches
+
+
+def _check_request(name, label, card_p, cpu_p, ref_p, obs, ids, strict):
+    """One request on the card, with the launch count reset just before it,
+    against the CPU's float32 and float64 runs of the same code; returns the
+    card's futures and its fused_reconstruct launches."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.ops import recon
+
+    recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+    got = card_p.predict(obs, ids)
+    torch.cuda.synchronize()
+    launches = recon.RECONSTRUCT_LAUNCHES
+    if launches < 1:
+        raise AssertionError(f"{name} {label}: predict() did not launch fused_reconstruct")
+    if got.shape != (S, len(obs), T, 2) or got.dtype != np.float32:
+        raise AssertionError(f"{name} {label}: futures {got.shape} {got.dtype}")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{name} {label}: non-finite futures")
+    cpu, ref = cpu_p.predict(obs, ids), ref_p.predict(obs, ids)
+    gap = float(np.abs(got - cpu).max())
+    e_cpu, e_card = float(np.abs(cpu - ref).max()), float(np.abs(got - ref).max())
+    print(f"{name} predict {label}: {len(obs)} peds in {len(np.unique(ids))} scenes, "
+          f"fused_reconstruct launches={launches}; max |card - CPU f32| {gap:.3e}, "
+          f"|CPU f32 - f64| {e_cpu:.3e}, |card - f64| {e_card:.3e}", flush=True)
+    # The card must be as close to the exact answer as the CPU's own f32 run.
+    np.testing.assert_allclose(got, ref, atol=ATOL + 2 * e_cpu, rtol=RTOL,
+                               err_msg=f"{name} {label}: card vs float64")
+    if strict:
+        np.testing.assert_allclose(got, cpu, atol=ATOL, rtol=RTOL,
+                                   err_msg=f"{name} {label}: card vs CPU f32")
+    return got, launches
+
+
+def _serve(name, cfg, splits, requests):
+    """The serving checks of one model; returns (card predictor, launches)."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    card_p = ETPredictor.from_checkpoint(cfg, "parity", datasets=splits)
+    cpu_p = ETPredictor.from_checkpoint(cfg, "parity", datasets=splits, device="cpu")
+    ref_tr = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu",
+                            dtype=torch.float64)
+    ref_tr.load_model()
+    ref_p = ETPredictor(ref_tr)
+    launches = 0
+    for label, (obs, ids) in requests.items():
+        # ET-STGCNN's inverse-distance adjacency is ill-conditioned on the
+        # dense 150-ped scene: two correct f32 runs differ there by ~1e-3, so
+        # that one request is held to the float64 run alone.
+        got, n = _check_request(name, label, card_p, cpu_p, ref_p, obs, ids,
+                                strict=(name, label) != ("stgcnn", "(c)"))
+        launches += n
+        if label == "(a)":
+            other = _walkers(3, seed=12)
+            both = card_p.predict(np.concatenate([obs, other]), np.repeat([0, 1], [5, 3]))
+            np.testing.assert_allclose(both[:, :5], got, atol=ATOL,
+                                       err_msg=f"{name}: scene alone vs in a two-scene request")
+    return card_p, launches
 
 
 def main(argv):
@@ -191,6 +387,7 @@ def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on the card")
 
+    import numpy as np
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
     from eigentrajectory_tpu_torch.ops import build, recon
@@ -202,18 +399,21 @@ def main(argv):
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
 
-    # --- 1. build ---
+    # --- 1. build: one nvcc for each source, started together ---
+    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE)
     t0 = time.perf_counter()
-    lib_path = build.build(recon.SOURCE)
-    print(f"built {os.path.relpath(lib_path, REPO)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    with open(lib_path[:-3] + ".log") as f:
-        print("ptxas: " + " | ".join(l.strip() for l in f if "registers" in l
-                                      or "spill" in l), flush=True)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(build.build, sources))
+    print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for src, path in zip(sources, paths):
+        with open(path[:-3] + ".log") as f:
+            print(f"ptxas {src}: " + " | ".join(l.strip() for l in f if "registers" in l
+                                                 or "spill" in l), flush=True)
 
-    # --- 2. kernel against its plain version ---
+    # --- 2. kernels against their plain versions ---
     main_case = _case(N_MAIN, seed=0)
-    errs = [_check_kernel(recon, main_case, "main-path shape")[0],
+    errs = [_check_kernel(recon, main_case, "eval shape")[0],
             _check_kernel(recon, _case(45, seed=1), "ragged")[0]]
     special = _case(45, seed=2, special=True)
     err, (r_sp, _, _, tcc_sp) = _check_kernel(recon, special, "sca0/tie/constant-gt")
@@ -227,64 +427,82 @@ def main(argv):
     if abs(float(tcc_sp[1] - tcc_first[1])) > 1e-6 or float(tcc_sp[2]) != 0.0:
         raise AssertionError("FDE tie must score the first sample; constant GT gives TCC 0")
 
-    # --- 3. the main path ---
-    cfg = load_config(CFG_PATH, checkpoint_dir=os.path.join(REPO, "checkpoints"),
-                      n_max_peds=N_MAX)
-    data = make_synthetic_data(n_scenes=301, max_peds=5, seed=0)
+    serve_case = _case(N_SERVE, seed=3)
+    rerrs = [_check_reconstruct(recon, serve_case, "serving shape")[0],
+             _check_reconstruct(recon, _case(45, seed=4), "ragged")[0]]
+    err, r_sp = _check_reconstruct(recon, special, "sca0")
+    rerrs.append(err)
+    if not torch.equal(r_sp[:, 0], ori0.expand(S, T, 2)):
+        raise AssertionError("fused_reconstruct: sca == 0 must reconstruct to the origin")
+
+    # --- 3. test() of both models, card against CPU ---
+    data = make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=0)
     n_peds = int(data.num_peds_in_seq.sum())
     splits = (data, data, data)
-    tr = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cuda")
-    tr.load_model()
-    recon.LAUNCHES = 0
-    res = tr.test(eval_batch=EVAL_BATCH)
-    torch.cuda.synchronize()
-    launches = recon.LAUNCHES
-    print(f"test() on the card: {res} over {n_peds} peds, "
-          f"fused_recon_metrics launches={launches}", flush=True)
-    if launches < 1:
-        raise AssertionError("the main path did not launch fused_recon_metrics")
-    if not all(math.isfinite(v) for v in res.values()):
-        raise AssertionError(f"non-finite metrics {res}")
-    tr_cpu = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu")
-    tr_cpu.load_model()
-    res_cpu = tr_cpu.test(eval_batch=EVAL_BATCH)
-    print(f"test() on the CPU:  {res_cpu}", flush=True)
-    for key, want in res_cpu.items():
-        if not abs(res[key] - want) <= ATOL + RTOL * abs(want):
-            raise AssertionError(f"{key}: card {res[key]} vs CPU {want}")
+    cfgs = {name: load_config(os.path.join(REPO, "configs", path), checkpoint_dir=CKPT_DIR,
+                              n_max_peds=N_MAX) for name, path in MODELS}
+    trainers, recon_metrics_launches = {}, 0
+    for name, cfg in cfgs.items():
+        tr = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cuda")
+        tr.load_model()
+        tr_cpu = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu")
+        tr_cpu.load_model()
+        recon_metrics_launches += _check_test(name, tr, tr_cpu, recon)[1]
+        trainers[name] = tr
 
-    # --- 4. times ---
+    # --- 4. predict() of both models, card against CPU ---
+    whole = (data.obs_traj, np.repeat(np.arange(N_SCENES), data.num_peds_in_seq))
+    requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
+                "(b)": whole,
+                "(c)": (_walkers(150, seed=13), np.zeros(150, np.int64))}
+    predictors, reconstruct_launches = {}, 0
+    for name, cfg in cfgs.items():
+        predictors[name], n = _serve(name, cfg, splits, requests)
+        reconstruct_launches += n
+
+    # --- 5. times ---
     args = _on(main_case, "cuda")
     kernel_ms = _event_ms(lambda: recon.fused_recon_metrics(*args), 50)
     plain_ms = _event_ms(lambda: recon.fused_recon_metrics_plain(*args), 10)
-    bound_ms, bound_by = _bound_ms(main_case)
+    bound_ms, bound_by = _recon_metrics_bound_ms(main_case)
     print(f"[{card}] fused_recon_metrics N={N_MAIN}: kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    for _ in range(5):
-        tr.test(eval_batch=EVAL_BATCH)
-    walls = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        tr.test(eval_batch=EVAL_BATCH)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    walls.sort()
-    median, p80 = walls[len(walls) // 2], walls[39]   # 10 samples above p80
-    print(f"[{card}] test() wall over {len(walls)} runs: median {median * 1e3:.3f} ms, "
-          f"p80 {p80 * 1e3:.3f} ms, min {walls[0] * 1e3:.3f} ms; "
-          f"{n_peds / median:.1f} trajectories/s at the median "
-          f"({n_peds} peds in {EVAL_BATCH}x{N_MAX} slots)", flush=True)
+    sargs = _on(serve_case, "cuda")[:-1]
+    r_kernel_ms = _event_ms(lambda: recon.fused_reconstruct(*sargs), 50)
+    r_plain_ms = _event_ms(lambda: recon.fused_reconstruct_plain(*sargs), 10)
+    r_bound_ms, r_bound_by = _reconstruct_bound_ms(serve_case)
+    print(f"[{card}] fused_reconstruct N={N_SERVE}: kernel {r_kernel_ms:.4f} ms, "
+          f"plain {r_plain_ms:.4f} ms, bound {r_bound_ms:.4f} ms ({r_bound_by})", flush=True)
+
+    walls = {}
+    for name, tr in trainers.items():
+        walls[f"test_{name}"] = (_host_times(
+            lambda: tr.test(eval_batch=EVAL_BATCH), card,
+            f"{name} test() ({n_peds} peds in {EVAL_BATCH}x{N_MAX} slots)", n_peds),
+            lambda tr=tr: tr.test(eval_batch=EVAL_BATCH))
+    for name, p in predictors.items():
+        walls[f"predict_{name}"] = (_host_times(
+            lambda: p.predict(*whole), card,
+            f"{name} predict() request (b) ({n_peds} peds in {N_SCENES}x{BUCKET} slots)",
+            n_peds), lambda p=p: p.predict(*whole))
 
     if profile_dir is not None:
-        _profile(tr, card, median, profile_dir)
+        for label, (wall_s, fn) in walls.items():
+            _profile(label, fn, card, wall_s, profile_dir)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_recon_metrics", "route": "cuda",
-        "source": "eigentrajectory_tpu_torch/ops/csrc/recon_metrics.cu",
-        "replaces": "eigentrajectory_tpu/ops/pallas_recon.py:126",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
+    def row(name, source, replaces, launches, err, k_ms, p_ms, b_ms, b_by):
+        return {"name": name, "route": "cuda",
+                "source": f"eigentrajectory_tpu_torch/ops/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("fused_recon_metrics", recon.SOURCE, "eigentrajectory_tpu/ops/pallas_recon.py:126",
+            recon_metrics_launches, max(errs), kernel_ms, plain_ms, bound_ms, bound_by),
+        row("fused_reconstruct", recon.RECONSTRUCT_SOURCE,
+            "eigentrajectory_tpu/ops/pallas_recon.py:32", reconstruct_launches, max(rerrs),
+            r_kernel_ms, r_plain_ms, r_bound_ms, r_bound_by)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

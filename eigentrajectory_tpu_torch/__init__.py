@@ -4,15 +4,16 @@ The PyTorch counterpart of `eigentrajectory_tpu`. Module names follow the JAX
 package so that each part can be found beside its reference; the JAX package
 stays the reference every module here is tested against.
 
-Layer map (the sequenced evaluation path of ET-STGCNN):
+Layer map (the sequenced evaluation and serving paths of ET-STGCNN and ET-SGCN):
   config          typed experiment configuration
   data            trajectory windowing + padded scene batches
   etspace         normalizer / descriptor projection / anchor refine / facade
-  models          the predictor registry (stgcnn)
+  models          the predictor registry (stgcnn, sgcn)
   metrics         min-of-S ADE/FDE/TCC/COL with a leading scene axis
   ops             hand-written CUDA kernels with their plain PyTorch versions
   interop         flax msgpack checkpoints -> PyTorch modules and tensors
   train           evaluation engine (`ETTorchTrainer.test()`)
+  inference       serving API (`ETPredictor.predict()`)
 
 Nothing here imports JAX.
 """

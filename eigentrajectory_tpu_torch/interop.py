@@ -122,6 +122,8 @@ def _flatten(tree: Dict, names: Dict[str, str], prefix: Tuple[str, ...] = ()):
         else:
             if key not in names:
                 raise KeyError(f"no counterpart for leaf {'/'.join(prefix + (key,))}")
+            if key == "kernel" and np.ndim(value) == 2:
+                value = np.asarray(value).T      # linear (in, out) -> (out, in)
             yield ".".join(prefix + (names[key],)), value
 
 
@@ -129,7 +131,8 @@ def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETPa
     """Map a decoded {params, batch_stats, et} tree onto the port.
 
     Returns a state dict for the predictor (conv `kernel` (already OIHW) ->
-    `weight`, BatchNorm `scale` -> `weight`, PReLU `alpha` -> `weight`,
+    `weight`, linear `kernel` (in, out) -> `weight` (out, in), transposed,
+    BatchNorm `scale` -> `weight`, PReLU `alpha` -> `weight`,
     batch_stats `mean`/`var` -> `running_mean`/`running_var`) and the
     ETParams, all as CPU float tensors.
     """

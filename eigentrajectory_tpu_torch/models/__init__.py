@@ -2,13 +2,14 @@
 
 Each predictor module exports make_model(cfg), prepare(c_obs, obs_ori, aux),
 finalize(output, aux) and BATCHING, as in `eigentrajectory_tpu/models`. The
-port holds ET-STGCNN so far; the other predictors follow in later slices.
+port holds ET-STGCNN and ET-SGCN so far; the other predictors follow in later
+slices.
 """
 from __future__ import annotations
 
 import importlib
 
-_BASELINES = ("stgcnn",)
+_BASELINES = ("stgcnn", "sgcn")
 
 
 def available_baselines():

@@ -1,1 +1,2 @@
-from .recon import fused_recon_metrics, fused_recon_metrics_plain
+from .recon import (fused_recon_metrics, fused_recon_metrics_plain, fused_reconstruct,
+                    fused_reconstruct_plain)

@@ -35,14 +35,17 @@ class ETTorchTrainer:
 
     `datasets` = (train, val, test) TrajectoryData overrides loading the
     splits from `cfg.dataset_dir`. `device` defaults to the card; tests pass
-    "cpu".
+    "cpu". `dtype` is the type of the weights and activations: float32, the
+    only type the CUDA kernels take, or float64 on the CPU for a reference
+    that f32 rounding does not reach.
     """
 
     def __init__(self, cfg: ExpConfig, tag: str = "EigenTrajectory-TPU",
-                 datasets=None, device: str = "cuda"):
+                 datasets=None, device: str = "cuda", dtype: torch.dtype = torch.float32):
         self.cfg = cfg
         self.tag = tag
         self.device = torch.device(device)
+        self.dtype = dtype
         self.baseline = get_baseline(cfg.baseline)
         if self.baseline.BATCHING != "sequenced":
             raise NotImplementedError(
@@ -63,13 +66,28 @@ class ETTorchTrainer:
             self.data_val.max_peds_per_scene,
             self.data_test.max_peds_per_scene,
         )
-        self.model = self.baseline.make_model(cfg).to(self.device).eval()
+        self.model = self.baseline.make_model(cfg).to(self.device, dtype).eval()
         self.et: Optional[ETParams] = None
 
     # ---------------------------------------------------------------- eval
     def _predictor_fn(self, c_obs, obs_ori, aux):
         inputs = self.baseline.prepare(c_obs, obs_ori, aux)
         return self.baseline.finalize(self.model(*inputs), aux)
+
+    def recon_args(self, coef):
+        """The fused reconstruction's inputs (c_m, c_s, u_m, u_s, ori, rot,
+        sca, mask) from `et_forward(..., return_coefficients=True)` over a
+        (B, N) block, flattened to one pedestrian axis of B*N."""
+        cfg, et = self.cfg, self.et
+        b, _, n, _ = coef["c_pred_m"].shape
+        # (B, k, N, S) -> (k, B*N, S)
+        c_m, c_s = (coef[key].transpose(0, 1).reshape(cfg.k, b * n, cfg.num_samples)
+                    .contiguous() for key in ("c_pred_m", "c_pred_s"))
+        return (c_m, c_s, et.basis_m.U_pred, et.basis_s.U_pred,
+                coef["norm_ori"].reshape(b * n, 2).contiguous(),
+                coef["norm_rot"].reshape(b * n, 2, 2).contiguous(),
+                coef["norm_sca"].reshape(b * n).contiguous(),
+                coef["moving_mask"].reshape(b * n).contiguous())
 
     @torch.no_grad()
     def eval_step(self, obs: torch.Tensor, pred: torch.Tensor,
@@ -79,20 +97,12 @@ class ETTorchTrainer:
         obs (B, N, obs_len, 2), pred (B, N, pred_len, 2), valid (B, N) on the
         trainer's device -> (ade, fde, tcc, col), each (B, N).
         """
-        cfg, et = self.cfg, self.et
+        cfg = self.cfg
         b, n = valid.shape
         with record_function("eval.et_forward"):
-            coef = et_forward(et, self._predictor_fn, obs, valid, cfg.static_dist,
+            coef = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
                               return_coefficients=True)
-        # (B, k, N, S) -> (k, B*N, S): one pedestrian axis for the kernel.
-        c_m, c_s = (coef[key].transpose(0, 1).reshape(cfg.k, b * n, cfg.num_samples)
-                    .contiguous() for key in ("c_pred_m", "c_pred_s"))
-        args = (c_m, c_s, et.basis_m.U_pred, et.basis_s.U_pred,
-                coef["norm_ori"].reshape(b * n, 2).contiguous(),
-                coef["norm_rot"].reshape(b * n, 2, 2).contiguous(),
-                coef["norm_sca"].reshape(b * n).contiguous(),
-                coef["moving_mask"].reshape(b * n).contiguous(),
-                pred.reshape(b * n, cfg.pred_len, 2).contiguous())
+        args = (*self.recon_args(coef), pred.reshape(b * n, cfg.pred_len, 2).contiguous())
         recon_metrics = fused_recon_metrics if cfg.use_pallas else fused_recon_metrics_plain
         with record_function("eval.recon_metrics"):
             recon, ade, fde, tcc = recon_metrics(*args)
@@ -109,8 +119,9 @@ class ETTorchTrainer:
         meters = {k: M.AverageMeter() for k in ("ADE", "FDE", "TCC", "COL")}
         for batch in SceneBatcher(self.data_test, eval_batch, False, self.n_max):
             with record_function("eval.to_device"):
-                obs, pred, valid = (torch.from_numpy(x).to(self.device)
-                                    for x in (batch.obs, batch.pred, batch.ped_valid))
+                obs, pred = (torch.from_numpy(x).to(self.device, self.dtype)
+                             for x in (batch.obs, batch.pred))
+                valid = torch.from_numpy(batch.ped_valid).to(self.device)
             metrics = self.eval_step(obs, pred, valid)
             with record_function("eval.to_host"):
                 res = torch.stack(metrics).cpu().numpy()
@@ -130,7 +141,7 @@ class ETTorchTrainer:
         if missing or unexpected:
             raise KeyError(f"checkpoint does not match the model: missing {missing}, "
                            f"unexpected {unexpected}")
-        to = lambda x: x.to(self.device, torch.float32).contiguous()
+        to = lambda x: x.to(self.device, self.dtype).contiguous()
         self.et = ETParams(
             basis_m=ETBasis(*map(to, et.basis_m)), basis_s=ETBasis(*map(to, et.basis_s)),
             anchor_m=to(et.anchor_m), anchor_s=to(et.anchor_s))

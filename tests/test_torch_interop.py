@@ -64,3 +64,22 @@ def test_params_from_jax_fills_every_used_layer():
                                   tree["params"]["tpcnn_0"]["kernel"])
     assert et.basis_m.U_pred.shape == (24, 6) and et.anchor_s.shape == (6, 20)
     assert all(x.dtype == torch.float32 for x in (*et.basis_m, *et.basis_s))
+
+
+def test_params_from_jax_transposes_linear_kernels_only():
+    path = os.path.join(REPO, "checkpoints", "parity", "zara1", "model_best.msgpack")
+    tree = read_flax_msgpack(path)
+    state, _ = params_from_jax(tree)
+    query = tree["params"]["sparse_adjacency"]["spatial_attention"]["query"]
+    np.testing.assert_array_equal(
+        state["sparse_adjacency.spatial_attention.query.weight"].numpy(), query["kernel"].T)
+    np.testing.assert_array_equal(state["fusion.weight"].numpy(),
+                                  tree["params"]["fusion"]["kernel"])      # OIHW as is
+    # The port's linear layer then computes the JAX layer's x @ kernel + bias.
+    layer = torch.nn.Linear(64, 64)
+    layer.load_state_dict({"weight": state["sparse_adjacency.spatial_attention.query.weight"],
+                           "bias": state["sparse_adjacency.spatial_attention.query.bias"]})
+    x = np.random.default_rng(0).normal(size=(3, 64)).astype(np.float32)
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, x @ query["kernel"] + query["bias"], atol=1e-5)

@@ -1,13 +1,15 @@
-"""The port's fused_recon_metrics: on CPU tensors (its plain version) against
-the JAX package's Pallas kernel run in interpret mode, and on the card the
-CUDA kernel against the plain version (tolerance 1e-4: f32 sums in another
-order, as tests/test_pallas_recon.py allows)."""
+"""The port's fused_recon_metrics and fused_reconstruct: on CPU tensors
+(their plain versions) against the JAX package's Pallas kernels run in
+interpret mode, and on the card the CUDA kernels against the plain versions
+(tolerance 1e-4: f32 sums in another order, as tests/test_pallas_recon.py
+allows)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from eigentrajectory_tpu.ops.pallas_recon import fused_recon_metrics as jax_recon_metrics
+from eigentrajectory_tpu.ops.pallas_recon import fused_reconstruct as jax_reconstruct
 from eigentrajectory_tpu_torch.ops import recon
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -72,10 +74,32 @@ def test_plain_matches_pallas_interpret(n):
     assert tcc[2] == 0.0
 
 
+@pytest.mark.parametrize("special", [False, True])
+def test_reconstruct_plain_matches_pallas_interpret(special):
+    case = _case(37, seed=5, special=special)
+    args = _torch_args(case)[:-1]
+    launches = recon.RECONSTRUCT_LAUNCHES
+    got = recon.fused_reconstruct(*args)
+    assert recon.RECONSTRUCT_LAUNCHES == launches   # CPU tensors: plain version
+    assert got.shape == (20, 37, 12, 2) and got.dtype == torch.float32
+    want = jax_reconstruct(*(jnp.asarray(case[key]) for key in
+                             ("c_m", "c_s", "u_m", "u_s", "ori", "rot", "sca", "mask")),
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # The same trajectories as the metrics kernel's.
+    np.testing.assert_array_equal(got.numpy(),
+                                  recon.fused_recon_metrics_plain(*_torch_args(case))[0].numpy())
+    if special:
+        # sca == 0 on the moving branch reconstructs exactly to the origin.
+        assert torch.equal(got[:, 0], torch.from_numpy(case["ori"][0]).expand(20, 12, 2))
+
+
 def test_launch_rejects_non_cuda_tensors():
     args = _torch_args(_case(8))
     with pytest.raises(ValueError):
         recon._launch(*args)
+    with pytest.raises(ValueError):
+        recon._launch_reconstruct(*args[:-1])
 
 
 @pytest.fixture
@@ -113,3 +137,16 @@ def test_cuda_kernel_matches_plain(cuda_device, n, special):
                                             for i, x in enumerate(args)])
         torch.testing.assert_close(got[3][1], first[3][1], atol=1e-6, rtol=0)
         assert got[3][2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,special", [(45, True), (38528, False)])
+def test_cuda_reconstruct_matches_plain(cuda_device, n, special):
+    args = _torch_args(_case(n, seed=n, special=special), cuda_device)[:-1]
+    launches = recon.RECONSTRUCT_LAUNCHES
+    got = recon.fused_reconstruct(*args)
+    torch.cuda.synchronize()
+    assert recon.RECONSTRUCT_LAUNCHES == launches + 1
+    torch.testing.assert_close(got, recon.fused_reconstruct_plain(*args), **TOL)
+    if special:
+        assert torch.equal(got[:, 0], args[4][0].expand(20, 12, 2))
