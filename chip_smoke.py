@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--profile OUT_DIR]
+    python3 chip_smoke.py [--profile OUT_DIR | --ab OLD_CSRC_DIR]
 
 Run from the root of the repository on a machine with an NVIDIA H100 and the
 CUDA toolkit. It
@@ -14,7 +14,9 @@ CUDA toolkit. It
    ragged N, and on a case with sca == 0, an FDE tie and a constant-GT
    pedestrian; `fused_reconstruct` at the serving shape (N=301*128), at a
    ragged N, and on the sca == 0 case, which must reconstruct exactly to its
-   origin;
+   origin; both at the edges of the kernels' 32-pedestrian tile (N = 1, 31,
+   32, 33 and 109) with a mixed, an all-moving and an all-static mask; and
+   on every case the two kernels must give the same trajectories bit for bit;
 4. drives the eval path, `ETTorchTrainer.test()`, of ET-STGCNN (hotel
    configuration, committed hotel checkpoint) and of ET-SGCN (zara1, committed
    zara1 checkpoint) on a synthetic test split sized like hotel's (301
@@ -25,22 +27,35 @@ CUDA toolkit. It
    same checkpoints on three requests: (a) one scene of 5 pedestrians, (b)
    the whole synthetic split in one request with its scene ids (301 scenes
    in 128-slot rows), (c) one scene of 150 pedestrians (256 slots). Each
-   request checks that `fused_reconstruct` ran, that the futures are finite,
+   request checks that `fused_reconstruct` ran once, on exactly the request's
+   pedestrians (not the padded slots), that the futures are finite,
    and that the card is as close to the exact answer (a float64 run of the
    same code on the CPU) as the CPU's own float32 run, within 1e-4 more; on
    (a) and (b) the card must also agree with the CPU's float32 run within
    1e-4, and on (a) a scene predicted alone must equal its rows in a
    two-scene request;
-6. times both kernels and their plain versions with CUDA events beside the
-   least time the card could take for their work, and test() and predict()
+6. times both kernels beside the least time the card could take for their
+   work. `ms`/`kernel_ms` is device time at a cold cache: a run of launches
+   captured into a CUDA graph, so that no Python runs in the window, each on
+   another of several input sets and into an output of its own, so that
+   consecutive launches touch more than twice the 50 MB L2, replayed between
+   two CUDA events. `warm_ms` is the same with one input set (L2-warm), and
+   `call_ms` a loop of calls of the Python wrapper on one input set between
+   two events, which holds the host's share. `output_fill_ms` is what a
+   PyTorch zero_() of the same outputs alone takes by the cold method. The
+   plain versions are timed by a loop of calls; test() and predict()
    (request (b)) on the host clock;
 7. prints a JSON line with both kernels' numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
 with torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and
-prints the device time of each span. Any failure raises and the exit code is
-not 0; without a CUDA device the script fails before it prints a result.
+prints the device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2,
+then builds the sources of the same names in OLD_CSRC_DIR (another version of
+the kernels, with the same C interface), times both versions of each kernel
+in turns (old, new, new, old) by the three methods of step 6, prints the
+times and stops. Any failure raises and the exit code is not 0; without a
+CUDA device the script fails before it prints a result.
 """
 import json
 import math
@@ -49,6 +64,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT_DIR = os.path.join(REPO, "checkpoints")
@@ -61,6 +77,12 @@ N_MAIN = EVAL_BATCH * N_MAX
 BUCKET = 128                           # ETPredictor's default slots per scene
 N_SCENES = 301
 N_SERVE = N_SCENES * BUCKET            # flat slots of request (b)
+TILE = 32                              # pedestrians of a block in both kernels
+EDGE_NS = (1, TILE - 1, TILE, TILE + 1, 3 * TILE + 13)
+# Input sets a cold-cache timing rotates through, and launches in its graph:
+# consecutive launches touch more than twice the 50 MB L2 before a set returns.
+COLD_SETS_EVAL, COLD_SETS_SERVE = 5, 3
+GRAPH_LAUNCHES_EVAL, GRAPH_LAUNCHES_SERVE = 20, 15
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 rate and f32
 # rate outside the tensor cores, at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -78,10 +100,11 @@ def _card_line():
     return out.strip().splitlines()[0]
 
 
-def _case(n, seed, special=False):
+def _case(n, seed, special=False, mask=None):
     """Kernel inputs as numpy arrays. `special` adds a moving ped with
     sca == 0 (ped 0), a ped whose samples all end at one point so that the
-    FDE ties (ped 1) and a constant-GT ped (ped 2)."""
+    FDE ties (ped 1) and a constant-GT ped (ped 2). `mask` True or False
+    makes every ped moving or static."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -94,6 +117,8 @@ def _case(n, seed, special=False):
                       np.stack([np.sin(ang), np.cos(ang)], 1)], 1),
         sca=2.0 / (0.5 + np.abs(rng.normal(size=(n,)))),
         mask=rng.random(n) > 0.4, gt=rng.normal(size=(n, T, 2)))
+    if mask is not None:
+        case["mask"][:] = mask
     if special:
         case["mask"][:2] = True
         case["sca"][0] = 0.0
@@ -111,7 +136,7 @@ def _on(case, device):
             ("c_m", "c_s", "u_m", "u_s", "ori", "rot", "sca", "mask", "gt")]
 
 
-def _check_kernel(recon, case, label):
+def _check_kernel(recon, case, label, quiet=False):
     """fused_recon_metrics vs its plain version on the card; returns the max
     abs error and the kernel's outputs.
 
@@ -135,13 +160,14 @@ def _check_kernel(recon, case, label):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL,
                                    msg=lambda m: f"{label} {name}: {m}")
         err = max(err, float((g - w).abs().max()))
-    print(f"fused_recon_metrics check {label}: N={case['c_m'].shape[1]} "
-          f"max_abs_err={err:.3e} (atol=rtol={ATOL}; TCC on {int(clear.sum())} peds "
-          f"with a clear best sample)", flush=True)
+    if not quiet:
+        print(f"fused_recon_metrics check {label}: N={case['c_m'].shape[1]} "
+              f"max_abs_err={err:.3e} (atol=rtol={ATOL}; TCC on {int(clear.sum())} peds "
+              f"with a clear best sample)", flush=True)
     return err, got
 
 
-def _check_reconstruct(recon, case, label):
+def _check_reconstruct(recon, case, label, quiet=False):
     """fused_reconstruct vs its plain version on the card; returns the max
     abs error and the kernel's output."""
     import torch
@@ -153,12 +179,47 @@ def _check_reconstruct(recon, case, label):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL,
                                msg=lambda m: f"fused_reconstruct {label}: {m}")
     err = float((got - want).abs().max())
-    print(f"fused_reconstruct check {label}: N={case['c_m'].shape[1]} "
-          f"max_abs_err={err:.3e} (atol=rtol={ATOL})", flush=True)
+    if not quiet:
+        print(f"fused_reconstruct check {label}: N={case['c_m'].shape[1]} "
+              f"max_abs_err={err:.3e} (atol=rtol={ATOL})", flush=True)
     return err, got
 
 
-def _event_ms(fn, iters):
+def _check_pair(recon, case, label, quiet=False):
+    """Both kernels against their plain versions on one case, and against
+    each other: the trajectories must be the same bits. Returns the two max
+    abs errors and the two kernels' outputs."""
+    import torch
+
+    err, got = _check_kernel(recon, case, label, quiet)
+    rerr, rgot = _check_reconstruct(recon, case, label, quiet)
+    if not torch.equal(got[0], rgot):
+        raise AssertionError(f"{label}: fused_reconstruct and fused_recon_metrics give "
+                             f"different trajectories on the same inputs")
+    return err, rerr, got, rgot
+
+
+def _check_edges(recon):
+    """Both kernels at the edges of their tile of TILE pedestrians, each N
+    with a mixed, an all-moving and an all-static mask; returns the two max
+    abs errors."""
+    err = rerr = 0.0
+    for n in EDGE_NS:
+        for mask in (None, True, False):
+            e, r, _, _ = _check_pair(recon, _case(n, seed=100 + n, mask=mask),
+                                     f"N={n} mask={mask}", quiet=True)
+            err, rerr = max(err, e), max(rerr, r)
+    print(f"tile edges: N in {EDGE_NS} x (mixed, all-moving, all-static) masks, both kernels "
+          f"against their plain versions and bit-equal to each other: max_abs_err "
+          f"fused_recon_metrics {err:.3e}, fused_reconstruct {rerr:.3e} "
+          f"(atol=rtol={ATOL})", flush=True)
+    return err, rerr
+
+
+def _call_ms(fn, iters):
+    """Mean time of a call of fn in a loop of calls between two CUDA events:
+    the kernel's time or the host's time to enqueue it through the Python
+    wrapper, whichever is longer (inputs L2-warm)."""
     import torch
 
     for _ in range(3):
@@ -171,6 +232,153 @@ def _event_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _capture(fn, arg_sets, launches):
+    """A CUDA graph of `launches` calls of fn, call i on arg_sets[i % sets].
+
+    With several sets every output stays alive with the graph, so each launch
+    writes memory of its own and reads inputs that the launches since their
+    last use have pushed out of L2: a cold cache. With one set each output is
+    dropped at once and its memory reused: L2-warm. Returns the graph and
+    what it must keep alive."""
+    import torch
+
+    fn(*arg_sets[0])                       # built and loaded before the capture
+    torch.cuda.synchronize()
+    keep, graph = [arg_sets], torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            out = fn(*arg_sets[i % len(arg_sets)])
+            if len(arg_sets) > 1:
+                keep.append(out)
+            del out
+    return graph, keep
+
+
+def _capture_fill(outputs):
+    """A CUDA graph that fills each of the kernel outputs a cold-cache graph
+    kept (a tensor or a tuple of tensors a launch) with zeros, one PyTorch
+    fill a tensor: what writing the outputs alone costs on this card, as a
+    yardstick beside the bound. It is used nowhere in the port."""
+    import torch
+
+    tensors = [t for out in outputs for t in (out if isinstance(out, tuple) else (out,))]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for t in tensors:
+            t.zero_()
+    return graph, outputs
+
+
+def _replay_ms(captured, launches, replays=5):
+    """Device time of one launch: the graph replayed `replays` times between
+    two CUDA events, after two warm-up replays, over all its launches. No
+    Python runs inside the window."""
+    import torch
+
+    graph = captured[0]
+    for _ in range(2):
+        graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
+
+
+def _timed_kernels(main_case, serve_case):
+    """What step 6 and --ab time: (wrapper's name, the case of the table's
+    shape, its bound, input sets of a cold-cache timing, launches a graph)."""
+    return (("fused_recon_metrics", main_case, _recon_metrics_bound_ms,
+             COLD_SETS_EVAL, GRAPH_LAUNCHES_EVAL),
+            ("fused_reconstruct", serve_case, _reconstruct_bound_ms,
+             COLD_SETS_SERVE, GRAPH_LAUNCHES_SERVE))
+
+
+def _input_sets(name, case, n_sets):
+    """The case and n_sets - 1 more of its size from other seeds, as the
+    arguments of wrapper `name` on the card."""
+    n = case["c_m"].shape[1]
+    sets = [_on(c, "cuda") for c in
+            [case] + [_case(n, seed=1000 * i + 50) for i in range(1, n_sets)]]
+    return [args[:-1] for args in sets] if name == "fused_reconstruct" else sets
+
+
+@contextmanager
+def _csrc_dir(build, path):
+    """Have the wrappers build and load the kernels from the sources in
+    `path` instead of the package's."""
+    package_dir = build.CSRC_DIR
+    build.CSRC_DIR = path
+    build._loaded.clear()
+    try:
+        yield
+    finally:
+        build.CSRC_DIR = package_dir
+        build._loaded.clear()
+
+
+def _ab(recon, build, old_dir, card, kernels):
+    """Both versions of each kernel, the sources in `old_dir` and the
+    package's, in turns on this card by the three timing methods."""
+    import torch
+
+    out = {}
+    for name, case, bound, n_sets, launches in kernels:
+        fn = getattr(recon, name)
+        sets = _input_sets(name, case, n_sets)
+        graphs, results = {}, {}
+        dirs = {"old": old_dir, "new": build.CSRC_DIR}
+        for version, path in dirs.items():
+            with _csrc_dir(build, path):
+                result = fn(*sets[0])
+                results[version] = result if isinstance(result, tuple) else (result,)
+                graphs[version] = (_capture(fn, sets, launches), _capture(fn, sets[:1], launches))
+        same = all(torch.equal(a, b) for a, b in zip(results["old"], results["new"]))
+        diff = float((results["old"][0] - results["new"][0]).abs().max())
+        times = {"cold": [], "warm": [], "call": []}
+        for version in ("old", "new", "new", "old"):
+            cold, warm = graphs[version]
+            times["cold"].append((version, _replay_ms(cold, launches)))
+            times["warm"].append((version, _replay_ms(warm, launches)))
+            with _csrc_dir(build, dirs[version]):
+                times["call"].append((version, _call_ms(lambda: fn(*sets[0]), 50)))
+        bound_ms = bound(case)[0]
+        out[name] = {"n": case["c_m"].shape[1], "bound_ms": bound_ms,
+                     "outputs_bit_equal": same, "max_abs_diff_trajectories": diff,
+                     **{f"{k}_ms": [[v, round(t, 5)] for v, t in ts] for k, ts in times.items()}}
+        print(f"[{card}] A/B {name} N={out[name]['n']} bound {bound_ms:.4f} ms; device ms at "
+              f"a cold cache {times['cold']}, L2-warm {times['warm']}, wrapper loop "
+              f"{times['call']}; old and new outputs bit-equal: {same} (max |old - new| of "
+              f"the trajectories {diff:.3e})", flush=True)
+    print(json.dumps({"ab": out}), flush=True)
+
+
+def _kernel_times(recon, card, name, case, bound, n_sets, launches):
+    """One kernel's row of measurements: cold and warm device ms, wrapper-loop
+    ms, its plain version's ms, the bound and the fill of its outputs."""
+    fn, plain = getattr(recon, name), getattr(recon, name + "_plain")
+    sets = _input_sets(name, case, n_sets)
+    cold = _capture(fn, sets, launches)
+    cold_ms = _replay_ms(cold, launches)
+    warm_ms = _replay_ms(_capture(fn, sets[:1], launches), launches)
+    fill_ms = _replay_ms(_capture_fill(cold[1][1:]), launches)
+    call_ms = _call_ms(lambda: fn(*sets[0]), 50)
+    plain_ms = _call_ms(lambda: plain(*sets[0]), 10)
+    bound_ms, bound_by = bound(case)
+    print(f"[{card}] {name} N={case['c_m'].shape[1]}: device {cold_ms:.4f} ms at a cold "
+          f"cache ({n_sets} input sets in turn, {launches} launches a graph), "
+          f"{warm_ms:.4f} ms L2-warm; wrapper loop {call_ms:.4f} ms a call; plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / cold_ms:.1%} of it reached; zero_() of the same outputs alone "
+          f"{fill_ms:.4f} ms", flush=True)
+    return dict(ms=cold_ms, kernel_ms=cold_ms, warm_ms=warm_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                output_fill_ms=fill_ms)
 
 
 def _bound(read, write, ops):
@@ -319,14 +527,29 @@ def _check_request(name, label, card_p, cpu_p, ref_p, obs, ids, strict):
     card's futures and its fused_reconstruct launches."""
     import numpy as np
     import torch
+    from eigentrajectory_tpu_torch import inference
     from eigentrajectory_tpu_torch.ops import recon
 
-    recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
-    got = card_p.predict(obs, ids)
-    torch.cuda.synchronize()
-    launches = recon.RECONSTRUCT_LAUNCHES
+    # Note the shape predict() hands to fused_reconstruct on its way through.
+    shapes, wrapper = [], inference.fused_reconstruct
+
+    def noting(c_m, *rest):
+        shapes.append(tuple(c_m.shape))
+        return wrapper(c_m, *rest)
+
+    inference.fused_reconstruct = noting
+    try:
+        recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+        got = card_p.predict(obs, ids)
+        torch.cuda.synchronize()
+        launches = recon.RECONSTRUCT_LAUNCHES
+    finally:
+        inference.fused_reconstruct = wrapper
     if launches < 1:
         raise AssertionError(f"{name} {label}: predict() did not launch fused_reconstruct")
+    if shapes != [(K, len(obs), S)]:
+        raise AssertionError(f"{name} {label}: fused_reconstruct was given c_m of {shapes}, "
+                             f"expected the request's pedestrians, {(K, len(obs), S)}")
     if got.shape != (S, len(obs), T, 2) or got.dtype != np.float32:
         raise AssertionError(f"{name} {label}: futures {got.shape} {got.dtype}")
     if not np.isfinite(got).all():
@@ -335,7 +558,8 @@ def _check_request(name, label, card_p, cpu_p, ref_p, obs, ids, strict):
     gap = float(np.abs(got - cpu).max())
     e_cpu, e_card = float(np.abs(cpu - ref).max()), float(np.abs(got - ref).max())
     print(f"{name} predict {label}: {len(obs)} peds in {len(np.unique(ids))} scenes, "
-          f"fused_reconstruct launches={launches}; max |card - CPU f32| {gap:.3e}, "
+          f"fused_reconstruct launches={launches} at c_m {shapes[0]}; "
+          f"max |card - CPU f32| {gap:.3e}, "
           f"|CPU f32 - f64| {e_cpu:.3e}, |card - f64| {e_card:.3e}", flush=True)
     # The card must be as close to the exact answer as the CPU's own f32 run.
     np.testing.assert_allclose(got, ref, atol=ATOL + 2 * e_cpu, rtol=RTOL,
@@ -378,11 +602,13 @@ def _serve(name, cfg, splits, requests):
 def main(argv):
     import torch
 
-    profile_dir = None
+    profile_dir = ab_dir = None
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
+    elif argv[:1] == ["--ab"] and len(argv) == 2:
+        ab_dir = os.path.abspath(argv[1])
     elif argv:
-        raise SystemExit("usage: python3 chip_smoke.py [--profile OUT_DIR]")
+        raise SystemExit("usage: python3 chip_smoke.py [--profile OUT_DIR | --ab OLD_CSRC_DIR]")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on the card")
@@ -413,11 +639,15 @@ def main(argv):
 
     # --- 2. kernels against their plain versions ---
     main_case = _case(N_MAIN, seed=0)
-    errs = [_check_kernel(recon, main_case, "eval shape")[0],
-            _check_kernel(recon, _case(45, seed=1), "ragged")[0]]
+    errs, rerrs = [], []
+    for case, label in ((main_case, "eval shape"), (_case(45, seed=1), "ragged")):
+        err, rerr, _, _ = _check_pair(recon, case, label)
+        errs.append(err)
+        rerrs.append(rerr)
     special = _case(45, seed=2, special=True)
-    err, (r_sp, _, _, tcc_sp) = _check_kernel(recon, special, "sca0/tie/constant-gt")
+    err, rerr, (r_sp, _, _, tcc_sp), r_sp2 = _check_pair(recon, special, "sca0/tie/constant-gt")
     errs.append(err)
+    rerrs.append(rerr)
     ori0 = torch.from_numpy(special["ori"][0]).cuda()
     if not torch.equal(r_sp[:, 0], ori0.expand(S, T, 2)):
         raise AssertionError("sca == 0 on the moving branch must reconstruct to the origin")
@@ -428,12 +658,18 @@ def main(argv):
         raise AssertionError("FDE tie must score the first sample; constant GT gives TCC 0")
 
     serve_case = _case(N_SERVE, seed=3)
-    rerrs = [_check_reconstruct(recon, serve_case, "serving shape")[0],
-             _check_reconstruct(recon, _case(45, seed=4), "ragged")[0]]
-    err, r_sp = _check_reconstruct(recon, special, "sca0")
-    rerrs.append(err)
-    if not torch.equal(r_sp[:, 0], ori0.expand(S, T, 2)):
+    err, rerr, _, _ = _check_pair(recon, serve_case, "serving shape")
+    errs.append(err)
+    rerrs.append(rerr)
+    if not torch.equal(r_sp2[:, 0], ori0.expand(S, T, 2)):
         raise AssertionError("fused_reconstruct: sca == 0 must reconstruct to the origin")
+    err, rerr = _check_edges(recon)
+    errs.append(err)
+    rerrs.append(rerr)
+
+    if ab_dir is not None:
+        _ab(recon, build, ab_dir, card, _timed_kernels(main_case, serve_case))
+        return
 
     # --- 3. test() of both models, card against CPU ---
     data = make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=0)
@@ -461,18 +697,8 @@ def main(argv):
         reconstruct_launches += n
 
     # --- 5. times ---
-    args = _on(main_case, "cuda")
-    kernel_ms = _event_ms(lambda: recon.fused_recon_metrics(*args), 50)
-    plain_ms = _event_ms(lambda: recon.fused_recon_metrics_plain(*args), 10)
-    bound_ms, bound_by = _recon_metrics_bound_ms(main_case)
-    print(f"[{card}] fused_recon_metrics N={N_MAIN}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    sargs = _on(serve_case, "cuda")[:-1]
-    r_kernel_ms = _event_ms(lambda: recon.fused_reconstruct(*sargs), 50)
-    r_plain_ms = _event_ms(lambda: recon.fused_reconstruct_plain(*sargs), 10)
-    r_bound_ms, r_bound_by = _reconstruct_bound_ms(serve_case)
-    print(f"[{card}] fused_reconstruct N={N_SERVE}: kernel {r_kernel_ms:.4f} ms, "
-          f"plain {r_plain_ms:.4f} ms, bound {r_bound_ms:.4f} ms ({r_bound_by})", flush=True)
+    times, r_times = (_kernel_times(recon, card, *spec)
+                      for spec in _timed_kernels(main_case, serve_case))
 
     walls = {}
     for name, tr in trainers.items():
@@ -490,19 +716,18 @@ def main(argv):
         for label, (wall_s, fn) in walls.items():
             _profile(label, fn, card, wall_s, profile_dir)
 
-    def row(name, source, replaces, launches, err, k_ms, p_ms, b_ms, b_by):
+    def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",
                 "source": f"eigentrajectory_tpu_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}
+                **measured, "library_ms": None}
 
     print(json.dumps({"kernels": [
         row("fused_recon_metrics", recon.SOURCE, "eigentrajectory_tpu/ops/pallas_recon.py:126",
-            recon_metrics_launches, max(errs), kernel_ms, plain_ms, bound_ms, bound_by),
+            recon_metrics_launches, max(errs), times),
         row("fused_reconstruct", recon.RECONSTRUCT_SOURCE,
             "eigentrajectory_tpu/ops/pallas_recon.py:32", reconstruct_launches, max(rerrs),
-            r_kernel_ms, r_plain_ms, r_bound_ms, r_bound_by)]}))
+            r_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -56,9 +56,9 @@ class ExpConfig:
     seed: int = 0
     n_max_peds: Optional[int] = None   # pad target; inferred from data if None
     mesh_data_axis: int = 1            # data-parallel shard count (1 = one card)
-    use_pallas: bool = True            # the name the configs use; here it means
-                                       # "evaluate through the fused CUDA
-                                       # recon+metrics kernel" on the card
+    use_pallas: bool = True            # kept so that the configs load; not
+                                       # read: the tensors' device alone picks
+                                       # the CUDA kernels or their plain versions
     micro_batches: int = 1             # training knobs, kept so configs load
     scan_chunks: int = 0
     warmup_epochs: int = 0

@@ -4,8 +4,9 @@ The counterpart of `eigentrajectory_tpu/inference.py` on one device (the
 JAX package's `mesh` argument is not ported). Each request is padded into a
 block of scenes, one scene per row and `n_slots` slots a row (the largest
 scene rounded up to a multiple of `bucket`); the block goes through the ET
-facade, and its reconstruction tail runs `ops.recon.fused_reconstruct`, the
-CUDA kernel on the card and its plain version on the CPU.
+facade; the requested pedestrians' coefficients are gathered from the block,
+and the reconstruction tail, `ops.recon.fused_reconstruct` (the CUDA kernel
+on the card, its plain version on the CPU), runs on those alone.
 
     predictor = ETPredictor.from_checkpoint(cfg, tag)          # on the card
     futures = predictor.predict(obs_traj, scene_ids)           # (S, N, t_pred, 2)
@@ -74,8 +75,12 @@ class ETPredictor:
         with record_function("serve.et_forward"):
             coef = et_forward(tr.et, tr._predictor_fn, obs_t, valid_t, cfg.static_dist,
                               return_coefficients=True)
-        args = tr.recon_args(coef)
+        # Only the requested rows are reconstructed, in request order: the
+        # padded slots' coefficients stay behind.
+        c_m, c_s, u_m, u_s, ori, rot, sca, mask = tr.recon_args(coef)
+        c_m, c_s = c_m.index_select(1, flat_t), c_s.index_select(1, flat_t)
+        ori, rot, sca, mask = (x.index_select(0, flat_t) for x in (ori, rot, sca, mask))
         with record_function("serve.reconstruct"):
-            recon = fused_reconstruct(*args)                   # (S, b*n_slots, T, 2)
+            recon = fused_reconstruct(c_m, c_s, u_m, u_s, ori, rot, sca, mask)  # (S, n, T, 2)
         with record_function("serve.to_host"):
-            return recon.index_select(1, flat_t).cpu().numpy()
+            return recon.cpu().numpy()

@@ -1,20 +1,22 @@
 """Build the CUDA sources of `ops/csrc/` at first use and load them.
 
 Each source is compiled by `nvcc` into a shared library with a plain C
-interface, named by a hash of the source and the flags, under
-`eigentrajectory_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
-A failed build raises; nothing falls back.
+interface, named by a hash of the source, the headers it includes from
+`ops/csrc/` and the flags, under `eigentrajectory_tpu_torch/_build/`
+(git-ignored), and loaded with ctypes. A failed build raises; nothing falls
+back.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
@@ -37,12 +39,35 @@ def _nvcc() -> str:
                        "are built from source at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(source: str) -> List[str]:
+    """`source` (a file name under csrc/) and every header it includes with
+    quotes, directly or through another header, as paths; the source first."""
+    paths, todo = [], [os.path.join(CSRC_DIR, source)]
+    while todo:
+        path = todo.pop()
+        if path in paths:
+            continue
+        paths.append(path)
+        with open(path, "rb") as f:
+            names = _INCLUDE.findall(f.read())
+        todo += [os.path.normpath(os.path.join(os.path.dirname(path), name.decode()))
+                 for name in reversed(names)]
+    return paths
+
+
 def library_path(source: str) -> str:
-    """Where the library for `source` (a file name under csrc/) is built."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library for `source` (a file name under csrc/) is built: the
+    name holds a hash of the source, its headers and the flags, so an edit to
+    any of them builds anew."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(source):
+        with open(path, "rb") as f:
+            digest.update(b"\0" + os.path.basename(path).encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(source: str) -> str:

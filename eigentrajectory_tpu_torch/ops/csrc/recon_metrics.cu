@@ -7,37 +7,51 @@
 // Per pedestrian n and each of S samples it reconstructs the 2T positions
 // U @ C of the branch the moving mask selects, divides by `sca` on the
 // moving branch only (0 where sca == 0), rotates by rot^T, adds `ori`, and
-// writes the sample to recon (S, N, T, 2). It keeps the running min-over-S
-// ADE (time mean) and FDE (last step), and the positions of the FIRST sample
-// of minimal FDE (strict <), whose TCC against GT it computes at the end:
-// per coordinate the Pearson correlation over time, 0 where the
-// denominator is 0, clipped to [-1, 1], averaged over x/y.
+// writes the sample to recon (S, N, T, 2). Over the samples it takes the
+// minimum ADE (time mean) and FDE (last step), and scores the FIRST sample
+// of minimal FDE (strict <) against GT by TCC: per coordinate the Pearson
+// correlation over time, 0 where the denominator is 0, clipped to [-1, 1],
+// averaged over x/y.
 //
-// Bound: memory. Per ped it reads c_m + c_s (2*k*S*4 = 960 B at k=6, S=20;
-// only the selected branch is needed, 480 B), GT (96 B) and about 29 B of
-// params, and writes 1,920 B of trajectories and 12 B of metrics: about
-// 3.0 KB in all (2.5 KB reading one branch). At the main path's
-// N = 320*57 = 18,240 that is about 55 MB (46 MB), so the bound is that over
-// the card's memory rate; the ~0.2 GFLOP are negligible.
+// Bound: memory. Per ped it reads the selected branch's coefficients
+// (k*S*4 = 480 B at k=6, S=20), GT (96 B) and about 29 B of params, and
+// writes 1,920 B of trajectories and 12 B of metrics: about 2.5 KB. The
+// ~0.2 GFLOP at the eval shape are negligible.
 //
-// Design: one thread per pedestrian; both bases (2*T*K floats each) staged
-// in shared memory; the loop over S runs inside the thread with the running
-// minima and the best sample's 2T positions in registers; each sample's 2T
-// floats go straight to the output as float4 stores; TCC in the epilogue.
-// The coefficients are read in the public (k, N, S) layout, so nothing is
-// transposed around the call. The TPU kernel's selection matrices and its
-// 128-lane padding of N are not carried over: threads with n >= N return.
-// Making it fast (coalesced (S, N, T, 2) stores through shared memory,
-// vectorised coefficient loads) is later work.
+// Design (the tile is set out in recon_tile.cuh, shared with
+// reconstruct.cu): a block takes 32 consecutive pedestrians and all S
+// samples, so the work is spread over N*S (pedestrian, sample) pairs. The
+// tile's coefficients and GT come in coalesced, by cp.async; each warp takes
+// samples w, w + kWarps, ...: lane p reconstructs pedestrian p's sample into the
+// warp's stage, sums its distances to GT (held in registers) in time order,
+// and the warp stores the stage as one contiguous run. Each sample's ADE and
+// last-step distance go to shared memory; after one block-wide barrier the
+// first warp walks the S values of its pedestrian in sample order (min of
+// ADE; strict < on FDE, so the lowest sample index wins a tie), keeps only
+// the best sample's index, and recomputes that sample's positions from the
+// coefficients still in shared memory, with the same arithmetic, for TCC.
 
 #include <cuda_runtime.h>
 
+#include "recon_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using et::kTile;
+constexpr int kWarps = 4;              // each takes samples w, w + kWarps, ...
+constexpr int kThreads = 32 * kWarps;
 
+// Shared memory after the tile's: GT [kTile][2T], then each sample's ADE and
+// last-step distance, [S][kTile] each.
 template <int T, int K>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ int metrics_floats(int n_samples) {
+  return et::Tile<T, K, kWarps>::floats(n_samples) + kTile * 2 * T + 2 * n_samples * kTile;
+}
+
+// The 7 blocks a multiprocessor of the launch bounds hold the kernel to 72
+// registers without spills; shared memory admits 5 blocks at S = 20.
+template <int T, int K>
+__global__ void __launch_bounds__(kThreads, 7)
 recon_metrics_kernel(const float* __restrict__ c_m, const float* __restrict__ c_s,
                      const float* __restrict__ u_m, const float* __restrict__ u_s,
                      const float* __restrict__ ori, const float* __restrict__ rot,
@@ -47,75 +61,85 @@ recon_metrics_kernel(const float* __restrict__ c_m, const float* __restrict__ c_
                      float* __restrict__ ade_out, float* __restrict__ fde_out,
                      float* __restrict__ tcc_out, int n_peds, int n_samples) {
   constexpr int T2 = 2 * T;
-  static_assert(T2 % 4 == 0, "float4 stores need 2T to be a multiple of 4");
+  extern __shared__ float4 smem[];
+  const et::Tile<T, K, kWarps> tile(reinterpret_cast<float*>(smem), n_samples);
+  float* s_gt = tile.end();
+  float* s_ade = s_gt + kTile * T2;
+  float* s_fde = s_ade + n_samples * kTile;
 
-  __shared__ float su[2][T2 * K];
-  for (int i = threadIdx.x; i < T2 * K; i += blockDim.x) {
-    su[0][i] = u_m[i];
-    su[1][i] = u_s[i];
-  }
+  const size_t n0 = static_cast<size_t>(blockIdx.x) * kTile;
+  const size_t left = n_peds - n0;
+  const int np = left < kTile ? static_cast<int>(left) : kTile;
+  const unsigned moving = et::moving_bits(mask, n0, np);
+  tile.load(c_m, c_s, u_m, u_s, ori, rot, sca, moving, n0, np, n_peds, n_samples);
+  tile.copy_run(s_gt, gt + n0 * T2, np * T2);     // the tile's GT is one contiguous run
+  et::copy_async_wait();
   __syncthreads();
 
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_peds) return;
-
-  const bool moving = mask[n] != 0;
-  const float* u = su[moving ? 0 : 1];
-  const float* c = (moving ? c_m : c_s) + static_cast<size_t>(n) * n_samples;
-  const size_t c_row = static_cast<size_t>(n_peds) * n_samples;  // stride of k
-  const float r00 = rot[4 * n], r01 = rot[4 * n + 1];
-  const float r10 = rot[4 * n + 2], r11 = rot[4 * n + 3];
-  const float ox = ori[2 * n], oy = ori[2 * n + 1];
-  const float sc = sca[n];
-  const float scale = moving ? (sc != 0.f ? 1.f / sc : 0.f) : 1.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = lane < np;
+  const et::Ped ped = tile.ped(active ? lane : 0, moving);
+  const float* u = tile.basis(ped);
+  float* stage = tile.stage + warp * kTile * T2;
 
   float g[T2];
 #pragma unroll
-  for (int i = 0; i < T2; ++i) g[i] = gt[static_cast<size_t>(n) * T2 + i];
+  for (int i = 0; i < T2 / 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(s_gt + (active ? lane : 0) * T2)[i];
+    g[4 * i] = v.x;
+    g[4 * i + 1] = v.y;
+    g[4 * i + 2] = v.z;
+    g[4 * i + 3] = v.w;
+  }
 
-  float best[T2];
+  for (int s = warp; s < n_samples; s += kWarps) {
+    if (active) {
+      float cc[K];
+      tile.coefficients(lane, s, n_samples, cc);
+      float dsum = 0.f, dlast = 0.f;
 #pragma unroll
-  for (int i = 0; i < T2; ++i) best[i] = 0.f;
-  float min_ade = 1e30f, min_fde = 1e30f;
-
-  for (int si = 0; si < n_samples; ++si) {
-    float cc[K];
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) cc[kk] = c[kk * c_row + si];
-
-    float xy[T2];
-    float dsum = 0.f, dlast = 0.f;
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float x = 0.f, y = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < K; ++kk) {
-        x = fmaf(u[(2 * t) * K + kk], cc[kk], x);
-        y = fmaf(u[(2 * t + 1) * K + kk], cc[kk], y);
+      for (int t = 0; t < T; t += 2) {
+        float4 w;
+        et::recon_step<K>(u, t, cc, ped, w.x, w.y);
+        et::recon_step<K>(u, t + 1, cc, ped, w.z, w.w);
+        *reinterpret_cast<float4*>(stage + lane * T2 + 2 * t) = w;
+        float dx = w.x - g[2 * t], dy = w.y - g[2 * t + 1];
+        dsum += sqrtf(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+        dx = w.z - g[2 * t + 2];
+        dy = w.w - g[2 * t + 3];
+        dlast = sqrtf(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)));   // of step t + 1
+        dsum += dlast;
       }
-      x *= scale;
-      y *= scale;
-      const float wx = x * r00 + y * r01 + ox;
-      const float wy = x * r10 + y * r11 + oy;
-      xy[2 * t] = wx;
-      xy[2 * t + 1] = wy;
-      const float dx = wx - g[2 * t], dy = wy - g[2 * t + 1];
-      const float d = sqrtf(dx * dx + dy * dy);
-      dsum += d;
-      if (t == T - 1) dlast = d;
+      s_ade[s * kTile + lane] = dsum / T;
+      s_fde[s * kTile + lane] = dlast;
     }
+    et::store_sample<T>(stage, recon, s, n_peds, n0, np, lane);
+  }
+  __syncthreads();
+  if (warp != 0 || !active) return;
 
-    float4* dst = reinterpret_cast<float4*>(
-        recon + (static_cast<size_t>(si) * n_peds + n) * T2);
-#pragma unroll
-    for (int i = 0; i < T2 / 4; ++i)
-      dst[i] = make_float4(xy[4 * i], xy[4 * i + 1], xy[4 * i + 2], xy[4 * i + 3]);
+  // Lane p reduces pedestrian p over the samples, in sample order.
+  float min_ade = 1e30f, min_fde = 1e30f;
+  int best_s = -1;
+  for (int s = 0; s < n_samples; ++s) {
+    min_ade = fminf(min_ade, s_ade[s * kTile + lane]);
+    const float d = s_fde[s * kTile + lane];
+    const bool better = d < min_fde;       // strict: keeps the first minimum
+    min_fde = better ? d : min_fde;
+    best_s = better ? s : best_s;
+  }
 
-    min_ade = fminf(min_ade, dsum / T);
-    const bool better = dlast < min_fde;   // strict: keeps the first minimum
-    min_fde = better ? dlast : min_fde;
+  // The best sample's positions again, from the coefficients in shared
+  // memory; all zero where no sample was below the initial 1e30.
+  float best[T2];
+  if (best_s >= 0) {
+    float cc[K];
+    tile.coefficients(lane, best_s, n_samples, cc);
 #pragma unroll
-    for (int i = 0; i < T2; ++i) best[i] = better ? xy[i] : best[i];
+    for (int t = 0; t < T; ++t) et::recon_step<K>(u, t, cc, ped, best[2 * t], best[2 * t + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < T2; ++i) best[i] = 0.f;
   }
 
   float corr_sum = 0.f;
@@ -133,18 +157,18 @@ recon_metrics_kernel(const float* __restrict__ c_m, const float* __restrict__ c_
 #pragma unroll
     for (int t = 0; t < T; ++t) {
       const float a = best[2 * t + xy_i] - ma, b = g[2 * t + xy_i] - mb;
-      cov = fmaf(a, b, cov);
-      va = fmaf(a, a, va);
-      vb = fmaf(b, b, vb);
+      cov = __fmaf_rn(a, b, cov);
+      va = __fmaf_rn(a, a, va);
+      vb = __fmaf_rn(b, b, vb);
     }
-    const float den = sqrtf(va * vb);
+    const float den = sqrtf(__fmul_rn(va, vb));
     const float r = den > 0.f ? cov / den : 0.f;
     corr_sum += fminf(fmaxf(r, -1.f), 1.f);
   }
 
-  ade_out[n] = min_ade;
-  fde_out[n] = min_fde;
-  tcc_out[n] = 0.5f * corr_sum;
+  ade_out[n0 + lane] = min_ade;
+  fde_out[n0 + lane] = min_fde;
+  tcc_out[n0 + lane] = 0.5f * corr_sum;
 }
 
 }  // namespace
@@ -161,11 +185,18 @@ extern "C" int et_recon_metrics(const float* c_m, const float* c_s,
                                 const float* gt, float* recon, float* ade,
                                 float* fde, float* tcc, int k, int n, int s,
                                 int t, void* stream) {
-  if (k != 6 || t != 12) return static_cast<int>(cudaErrorInvalidValue);
+  if (k != 6 || t != 12 || n < 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!et::aligned16(recon)) return static_cast<int>(cudaErrorMisalignedAddress);
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  recon_metrics_kernel<12, 6><<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = recon_metrics_kernel<12, 6>;
+  const size_t bytes = metrics_floats<12, 6>(s) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(n) + kTile - 1) / kTile));
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       c_m, c_s, u_m, u_s, ori, rot, sca, mask, gt, recon, ade, fde, tcc, n, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,28 +12,33 @@
 //
 // Bound: memory. Per pedestrian it reads the selected branch's coefficients
 // (k*S*4 = 480 B at k=6, S=20) and about 29 B of params, and writes
-// S*T*2*4 = 1,920 B: the output is four times the input. At the serving
-// request of 301 scenes in 128-slot blocks (N = 38,528) that is about 94 MB,
-// more than the 50 MB L2, so the bound is that over the card's memory rate;
-// the f32 operations (2*2*k FMAs and ~8 more per step and sample) are
-// negligible.
+// S*T*2*4 = 1,920 B: the output is four times the input. The f32 operations
+// (2*2*k FMAs and ~8 more per step and sample) are negligible, so what
+// counts is that every memory instruction moves whole, neighbouring 16-byte
+// pieces.
 //
-// Design: one thread per (pedestrian, sample) pair, with n fastest in the
-// thread index, so there is no loop over S and a warp writes one contiguous
-// run of 32 * 96 B of the output; both bases (2*T*K floats each) are staged
-// in shared memory; each thread reads only the K coefficients of its branch
-// and writes its 2T floats as float4 stores. Threads past N*S return. The
-// TPU kernel's 128-lane padding of N and its per-sample MXU products are not
-// carried over.
+// Design (the tile is set out in recon_tile.cuh): a block takes 32
+// consecutive pedestrians and all S samples. It brings the tile's
+// coefficients into shared memory by cp.async, 16 bytes a lane on
+// neighbouring addresses; then each warp takes samples w, w + kWarps, ...:
+// lane p reconstructs pedestrian p's 2T positions into the warp's stage in
+// shared memory, and the warp stores the stage as the 32 * 96 contiguous
+// bytes it is in (S, N, T, 2). The block synchronises once, after the load. The TPU
+// kernel's 128-lane padding of N and its per-sample MXU products are not
+// carried over; the ragged last tile is masked lane by lane.
 
 #include <cuda_runtime.h>
 
+#include "recon_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using et::kTile;
+constexpr int kWarps = 5;              // each takes samples w, w + kWarps, ...
+constexpr int kThreads = 32 * kWarps;
 
 template <int T, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 reconstruct_kernel(const float* __restrict__ c_m, const float* __restrict__ c_s,
                    const float* __restrict__ u_m, const float* __restrict__ u_s,
                    const float* __restrict__ ori, const float* __restrict__ rot,
@@ -41,53 +46,37 @@ reconstruct_kernel(const float* __restrict__ c_m, const float* __restrict__ c_s,
                    const unsigned char* __restrict__ mask,
                    float* __restrict__ out, int n_peds, int n_samples) {
   constexpr int T2 = 2 * T;
-  static_assert(T2 % 4 == 0, "float4 stores need 2T to be a multiple of 4");
+  extern __shared__ float4 smem[];
+  const et::Tile<T, K, kWarps> tile(reinterpret_cast<float*>(smem), n_samples);
 
-  __shared__ float su[2][T2 * K];
-  for (int i = threadIdx.x; i < T2 * K; i += blockDim.x) {
-    su[0][i] = u_m[i];
-    su[1][i] = u_s[i];
-  }
+  const size_t n0 = static_cast<size_t>(blockIdx.x) * kTile;
+  const size_t left = n_peds - n0;
+  const int np = left < kTile ? static_cast<int>(left) : kTile;
+  const unsigned moving = et::moving_bits(mask, n0, np);
+  tile.load(c_m, c_s, u_m, u_s, ori, rot, sca, moving, n0, np, n_peds, n_samples);
+  et::copy_async_wait();
   __syncthreads();
 
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(n_peds) * n_samples) return;
-  const int n = static_cast<int>(idx % n_peds);
-  const int si = static_cast<int>(idx / n_peds);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = lane < np;
+  const et::Ped ped = tile.ped(active ? lane : 0, moving);
+  const float* u = tile.basis(ped);
+  float* stage = tile.stage + warp * kTile * T2;
 
-  const bool moving = mask[n] != 0;
-  const float* u = su[moving ? 0 : 1];
-  const float* c = (moving ? c_m : c_s) + static_cast<size_t>(n) * n_samples + si;
-  const size_t c_row = static_cast<size_t>(n_peds) * n_samples;  // stride of k
-  float cc[K];
+  for (int s = warp; s < n_samples; s += kWarps) {
+    if (active) {
+      float cc[K];
+      tile.coefficients(lane, s, n_samples, cc);
 #pragma unroll
-  for (int kk = 0; kk < K; ++kk) cc[kk] = c[kk * c_row];
-
-  const float r00 = rot[4 * n], r01 = rot[4 * n + 1];
-  const float r10 = rot[4 * n + 2], r11 = rot[4 * n + 3];
-  const float ox = ori[2 * n], oy = ori[2 * n + 1];
-  const float sc = sca[n];
-  const float scale = moving ? (sc != 0.f ? 1.f / sc : 0.f) : 1.f;
-
-  float xy[T2];
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    float x = 0.f, y = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) {
-      x = fmaf(u[(2 * t) * K + kk], cc[kk], x);
-      y = fmaf(u[(2 * t + 1) * K + kk], cc[kk], y);
+      for (int t = 0; t < T; t += 2) {
+        float4 w;
+        et::recon_step<K>(u, t, cc, ped, w.x, w.y);
+        et::recon_step<K>(u, t + 1, cc, ped, w.z, w.w);
+        *reinterpret_cast<float4*>(stage + lane * T2 + 2 * t) = w;
+      }
     }
-    x *= scale;
-    y *= scale;
-    xy[2 * t] = x * r00 + y * r01 + ox;
-    xy[2 * t + 1] = x * r10 + y * r11 + oy;
+    et::store_sample<T>(stage, out, s, n_peds, n0, np, lane);
   }
-
-  float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(idx) * T2);
-#pragma unroll
-  for (int i = 0; i < T2 / 4; ++i)
-    dst[i] = make_float4(xy[4 * i], xy[4 * i + 1], xy[4 * i + 2], xy[4 * i + 3]);
 }
 
 }  // namespace
@@ -103,11 +92,18 @@ extern "C" int et_reconstruct(const float* c_m, const float* c_s,
                               const float* sca, const unsigned char* mask,
                               float* out, int k, int n, int s, int t,
                               void* stream) {
-  if (k != 6 || t != 12) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * s;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(static_cast<unsigned>((total + kThreads - 1) / kThreads));
-  reconstruct_kernel<12, 6><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k != 6 || t != 12 || n < 0 || s < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!et::aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n == 0 || s == 0) return static_cast<int>(cudaSuccess);
+  auto kernel = reconstruct_kernel<12, 6>;
+  const size_t bytes = et::Tile<12, 6, kWarps>::floats(s) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(n) + kTile - 1) / kTile));
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       c_m, c_s, u_m, u_s, ori, rot, sca, mask, out, n, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@ kernels, their wrappers and their plain PyTorch versions.
 The counterparts of `fused_reconstruct` and `fused_recon_metrics` in
 `eigentrajectory_tpu/ops/pallas_recon.py`. Each wrapper dispatches on where
 its tensors lie: CUDA tensors go to its hand-written kernel
-(`csrc/reconstruct.cu`, `csrc/recon_metrics.cu`, built at first use, see
-`build.py`) or raise; CPU tensors go to its plain version, the einsum +
+(`csrc/reconstruct.cu`, `csrc/recon_metrics.cu`, which share their tile of
+pedestrians and their reconstruction in `csrc/recon_tile.cuh`; built at first
+use, see `build.py`) or raise; CPU tensors go to its plain version, the einsum +
 denormalize (+ metrics) path of the JAX package's non-TPU branch.
 """
 from __future__ import annotations

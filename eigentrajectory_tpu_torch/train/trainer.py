@@ -27,7 +27,7 @@ from ..etspace.descriptor import ETBasis
 from ..etspace.facade import ETParams, et_forward
 from ..interop import params_from_jax, read_flax_msgpack
 from ..models import get_baseline
-from ..ops.recon import fused_recon_metrics, fused_recon_metrics_plain
+from ..ops.recon import fused_recon_metrics
 
 
 class ETTorchTrainer:
@@ -103,9 +103,8 @@ class ETTorchTrainer:
             coef = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
                               return_coefficients=True)
         args = (*self.recon_args(coef), pred.reshape(b * n, cfg.pred_len, 2).contiguous())
-        recon_metrics = fused_recon_metrics if cfg.use_pallas else fused_recon_metrics_plain
         with record_function("eval.recon_metrics"):
-            recon, ade, fde, tcc = recon_metrics(*args)
+            recon, ade, fde, tcc = fused_recon_metrics(*args)
         recon = recon.reshape(recon.shape[0], b, n, cfg.pred_len, 2).transpose(0, 1)
         with record_function("eval.col"):
             cols = M.col(recon, valid)

@@ -1,0 +1,59 @@
+"""How `ops/build.py` names what it builds: a library's file name holds a
+hash of its source, of the headers the source includes from csrc/ (directly
+or through another header) and of the compiler's flags, so that an edit to
+any of them builds anew and no stale library is loaded. Needs no nvcc."""
+import os
+
+import pytest
+
+from eigentrajectory_tpu_torch.ops import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    (tmp_path / "inner.cuh").write_text("#define INNER 1\n")
+    (tmp_path / "tile.cuh").write_text('#pragma once\n#include "inner.cuh"\n#define TILE 32\n')
+    (tmp_path / "unrelated.cuh").write_text("#define OTHER 1\n")
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n  #  include "tile.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("#include <cuda_runtime.h>\nint b;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    return tmp_path
+
+
+def test_source_files_follow_quoted_includes(csrc):
+    assert [os.path.basename(p) for p in build.source_files("a.cu")] == [
+        "a.cu", "tile.cuh", "inner.cuh"]
+    assert [os.path.basename(p) for p in build.source_files("b.cu")] == ["b.cu"]
+
+
+@pytest.mark.parametrize("edited", ["a.cu", "tile.cuh", "inner.cuh"])
+def test_hash_changes_with_the_source_and_every_included_header(csrc, edited):
+    before_a, before_b = build.library_path("a.cu"), build.library_path("b.cu")
+    assert os.path.dirname(before_a) == build.BUILD_DIR
+    assert os.path.basename(before_a).startswith("a-") and before_a.endswith(".so")
+    assert build.library_path("a.cu") == before_a            # stable
+    with open(csrc / edited, "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("a.cu") != before_a
+    assert build.library_path("b.cu") == before_b
+
+
+def test_hash_ignores_headers_not_included(csrc):
+    before = build.library_path("a.cu")
+    with open(csrc / "unrelated.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("a.cu") == before
+
+
+def test_hash_changes_with_the_flags(csrc, monkeypatch):
+    before = build.library_path("a.cu")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("a.cu") != before
+
+
+def test_the_kernels_share_one_header():
+    """Both kernels take their reconstruction from recon_tile.cuh, so the
+    hash of each covers it."""
+    for source in ("reconstruct.cu", "recon_metrics.cu"):
+        names = [os.path.basename(p) for p in build.source_files(source)]
+        assert names == [source, "recon_tile.cuh"]

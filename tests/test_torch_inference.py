@@ -14,6 +14,7 @@ import torch
 from eigentrajectory_tpu.config import load_config as jax_load_config
 from eigentrajectory_tpu.data.synthetic import make_synthetic_data
 from eigentrajectory_tpu.inference import ETPredictor as JaxPredictor
+from eigentrajectory_tpu_torch import inference as torch_inference
 from eigentrajectory_tpu_torch.config import load_config
 from eigentrajectory_tpu_torch.inference import ETPredictor
 from eigentrajectory_tpu_torch.ops import recon
@@ -77,6 +78,34 @@ def test_predict_matches_jax(predictors, kind):
     assert got.shape == want.shape == (20, len(obs), 12, 2)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("kind", ["single", "multi_scene", "larger_than_bucket"])
+def test_predict_reconstructs_only_the_requested_rows(predictors, kind, monkeypatch):
+    """predict() gathers the request's pedestrians out of the padded block
+    before the reconstruction: fused_reconstruct gets exactly those rows, in
+    request order, and what it returns is the answer as it stands."""
+    jp, tp = predictors
+    obs, ids = _request(kind)
+    n, calls = len(obs), []
+
+    def noting(*args):
+        out = recon.fused_reconstruct(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(torch_inference, "fused_reconstruct", noting)
+    got = tp.predict(obs, ids)
+    assert len(calls) == 1
+    (c_m, c_s, u_m, u_s, ori, rot, sca, mask), out = calls[0]
+    assert c_m.shape == c_s.shape == (6, n, 20)
+    assert u_m.shape == u_s.shape == (24, 6)
+    assert (ori.shape, rot.shape, sca.shape, mask.shape) == ((n, 2), (n, 2, 2), (n,), (n,))
+    assert all(x.is_contiguous() for x in (c_m, c_s, ori, rot, sca, mask))
+    # Request order: each row's origin is that pedestrian's last observed point.
+    np.testing.assert_array_equal(ori.numpy(), obs[:, -1])
+    np.testing.assert_array_equal(got, out.numpy())
+    np.testing.assert_allclose(got, jp.predict(obs, ids), **TOL)
 
 
 def _jax_predict_x64(cfg_path, obs):

@@ -15,11 +15,14 @@ from eigentrajectory_tpu_torch.ops import recon
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _case(n, seed=0, special=True, k=6, s=20, t=12):
+TILE = 32          # pedestrians of a block in both CUDA kernels
+
+
+def _case(n, seed=0, special=True, k=6, s=20, t=12, moving=None):
     """Inputs at the shapes of tests/test_pallas_recon.py. `special` adds a
     moving ped of sca == 0 (ped 0), a ped whose samples all end at the same
     point so the FDE ties across samples (ped 1), and a constant-GT ped
-    (ped 2)."""
+    (ped 2). `moving` True or False makes every ped moving or static."""
     rng = np.random.default_rng(seed)
     c_m = rng.normal(size=(k, n, s)).astype(np.float32)
     c_s = rng.normal(size=(k, n, s)).astype(np.float32)
@@ -32,6 +35,8 @@ def _case(n, seed=0, special=True, k=6, s=20, t=12):
     sca = (2.0 / (0.5 + np.abs(rng.normal(size=(n,))))).astype(np.float32)
     mask = rng.random(n) > 0.4
     gt = rng.normal(size=(n, t, 2)).astype(np.float32)
+    if moving is not None:
+        mask[:] = moving
     if not special:
         return dict(c_m=c_m, c_s=c_s, u_m=u_m, u_s=u_s, ori=ori, rot=rot, sca=sca,
                     mask=mask, gt=gt)
@@ -150,3 +155,39 @@ def test_cuda_reconstruct_matches_plain(cuda_device, n, special):
     torch.testing.assert_close(got, recon.fused_reconstruct_plain(*args), **TOL)
     if special:
         assert torch.equal(got[:, 0], args[4][0].expand(20, 12, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moving", [None, True, False])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 3 * TILE + 13])
+def test_cuda_kernels_at_the_tile_edges(cuda_device, n, moving):
+    """Both kernels against their plain versions where the last tile of
+    pedestrians is ragged, full or a single pedestrian, with a mixed, an
+    all-moving and an all-static mask; and the same trajectories, bit for
+    bit, from both kernels."""
+    args = _torch_args(_case(n, seed=100 + n, special=False, moving=moving), cuda_device)
+    got = recon.fused_recon_metrics(*args)
+    rgot = recon.fused_reconstruct(*args[:-1])
+    torch.cuda.synchronize()
+    want = recon.fused_recon_metrics_plain(*args)
+    for name, g, w in zip(("recon", "ade", "fde"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **TOL)
+    clear = _unambiguous(want[0], args[-1])
+    torch.testing.assert_close(got[3][clear], want[3][clear], msg="tcc", **TOL)
+    assert torch.equal(got[0], rgot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [45, 18240])
+def test_cuda_kernels_give_the_same_trajectories(cuda_device, n):
+    """The two kernels share their reconstruction: identical bits on
+    identical inputs, the sca == 0 / FDE-tie / constant-GT case included,
+    and the tie still scores sample 0."""
+    args = _torch_args(_case(n, seed=n, special=True), cuda_device)
+    got = recon.fused_recon_metrics(*args)
+    assert torch.equal(got[0], recon.fused_reconstruct(*args[:-1]))
+    final = got[0][:, 1, -1]
+    assert torch.equal(final, final[:1].expand_as(final))      # ped 1 ties on FDE
+    first = recon.fused_recon_metrics(*[x[..., :1].contiguous() if i < 2 else x
+                                        for i, x in enumerate(args)])
+    torch.testing.assert_close(got[3][1], first[3][1], atol=1e-6, rtol=0)

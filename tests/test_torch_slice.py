@@ -2,6 +2,7 @@
 ETJaxTrainer's, both loaded from the committed hotel checkpoint, on the same
 small synthetic splits (tolerance 1e-4: the forward of a trained model in
 f32 with sums in another order)."""
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from eigentrajectory_tpu.train.trainer import ETJaxTrainer
 from eigentrajectory_tpu_torch.config import load_config
 from eigentrajectory_tpu_torch.ops import recon
 from eigentrajectory_tpu_torch.train import ETTorchTrainer
+from eigentrajectory_tpu_torch.train import trainer as torch_trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "eigentrajectory-stgcnn-hotel.json")
@@ -50,6 +52,33 @@ def test_eval_step_per_ped_metrics_match(trainers):
         v = batch.ped_valid
         for name, g, w in zip(("ADE", "FDE", "TCC", "COL"), got, want):
             np.testing.assert_allclose(g.numpy()[v], np.asarray(w)[v], err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_eval_step_calls_fused_recon_metrics_whatever_use_pallas(trainers, use_pallas,
+                                                                 monkeypatch):
+    """The config's `use_pallas` picks nothing in the port: eval_step always
+    calls fused_recon_metrics (whose tensors' device picks kernel or plain
+    version), and the metrics are the JAX package's either way."""
+    jtr, ttr = trainers
+    calls = []
+
+    def noting(*args):
+        calls.append(args[0].shape)
+        return recon.fused_recon_metrics(*args)
+
+    monkeypatch.setattr(torch_trainer, "fused_recon_metrics", noting)
+    monkeypatch.setattr(ttr, "cfg", dataclasses.replace(ttr.cfg, use_pallas=use_pallas))
+    batch = next(iter(SceneBatcher(jtr.data_test, 5, False, jtr.n_max)))
+    got = ttr.eval_step(*(torch.from_numpy(x) for x in
+                          (batch.obs, batch.pred, batch.ped_valid)))
+    assert calls == [(6, 5 * jtr.n_max, 20)]
+    want = jtr._build_eval_step()(jtr.params, jtr.batch_stats, jnp.asarray(batch.obs),
+                                  jnp.asarray(batch.pred), jnp.asarray(batch.ped_valid),
+                                  jnp.asarray(batch.scene_valid), jtr.et, jtr._sd)
+    v = batch.ped_valid
+    for name, g, w in zip(("ADE", "FDE", "TCC", "COL"), got, want):
+        np.testing.assert_allclose(g.numpy()[v], np.asarray(w)[v], err_msg=name, **TOL)
 
 
 def test_test_means_match(trainers):

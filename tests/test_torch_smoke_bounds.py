@@ -1,0 +1,76 @@
+"""The yardstick of chip_smoke.py, pinned on the CPU: the least time the card
+could take for each kernel's work is computed from the run's inputs as bytes
+over the H100's memory rate (each input read once, each output written once,
+one coefficient branch a pedestrian) or f32 operations over its f32 rate,
+whichever is larger. The script imports torch only inside its functions, so
+it can be imported where there is no card."""
+import numpy as np
+import pytest
+
+import chip_smoke
+
+K, S, T = 6, 20, 12
+
+
+def _bytes(n, n_bases, gt):
+    """Bytes by hand: one branch's coefficients, the bases in use, ori, rot,
+    sca and the mask in; the trajectories (and GT in, three metrics out)."""
+    read = n * K * S * 4 + n_bases * 2 * T * K * 4 + n * (8 + 16 + 4 + 1)
+    write = n * S * T * 2 * 4
+    if gt:
+        read += n * T * 2 * 4
+        write += 3 * n * 4
+    return read + write
+
+
+def test_widths_are_the_kernels():
+    assert (chip_smoke.K, chip_smoke.S, chip_smoke.T) == (K, S, T)
+    assert chip_smoke.N_MAIN == 18240 and chip_smoke.N_SERVE == 38528
+    assert chip_smoke.PEAK_BYTES_PER_S == 3.35e12 and chip_smoke.PEAK_F32_PER_S == 67e12
+
+
+def test_recon_metrics_bound_at_the_eval_shape():
+    case = chip_smoke._case(chip_smoke.N_MAIN, seed=0)
+    ms, by = chip_smoke._recon_metrics_bound_ms(case)
+    total = _bytes(18240, 2, gt=True)
+    assert total == 46276032                       # the 46.3 MB of PERF.md's table
+    assert by == "bytes"
+    assert ms == pytest.approx(total / 3.35e12 * 1e3, rel=1e-12)
+    assert round(ms, 4) == 0.0138
+
+
+def test_reconstruct_bound_at_the_serving_shape():
+    case = chip_smoke._case(chip_smoke.N_SERVE, seed=3)
+    ms, by = chip_smoke._reconstruct_bound_ms(case)
+    total = _bytes(38528, 2, gt=False)
+    assert total == 93585664                       # the 93.6 MB of PERF.md's table
+    assert by == "bytes"
+    assert ms == pytest.approx(total / 3.35e12 * 1e3, rel=1e-12)
+    assert round(ms, 4) == 0.0279
+
+
+@pytest.mark.parametrize("mask,n_bases", [(None, 2), (True, 1), (False, 1)])
+def test_bound_counts_one_branch_a_pedestrian(mask, n_bases):
+    """A mixed mask reads one coefficient branch for each pedestrian, not
+    both, and both bases; an all-moving or all-static one a single basis."""
+    n = 109
+    case = chip_smoke._case(n, seed=1, mask=mask)
+    assert (0 < case["mask"].sum() < n) == (mask is None)
+    assert chip_smoke._recon_bytes_in(case) == (
+        n * K * S * 4 + n_bases * 2 * T * K * 4 + n * 29)
+    ms, _ = chip_smoke._reconstruct_bound_ms(case)
+    assert ms == pytest.approx(_bytes(n, n_bases, gt=False) / 3.35e12 * 1e3, rel=1e-12)
+    ms, _ = chip_smoke._recon_metrics_bound_ms(case)
+    assert ms == pytest.approx(_bytes(n, n_bases, gt=True) / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_bound_turns_to_operations_when_they_take_longer():
+    assert chip_smoke._bound(read=4, write=4, ops=1e9) == (1e9 / 67e12 * 1e3, "operations")
+    assert chip_smoke._bound(read=1e9, write=0, ops=10)[1] == "bytes"
+
+
+def test_case_is_made_from_its_seed():
+    a, b = chip_smoke._case(40, seed=5), chip_smoke._case(40, seed=5)
+    assert all(np.array_equal(a[key], b[key]) for key in a)
+    assert all(v.dtype == (bool if key == "mask" else np.float32) for key, v in a.items())
+    assert not np.array_equal(a["c_m"], chip_smoke._case(40, seed=6)["c_m"])
