@@ -45,12 +45,35 @@ CUDA toolkit. It
    PyTorch zero_() of the same outputs alone takes by the cold method. The
    plain versions are timed by a loop of calls; test() and predict()
    (request (b)) on the host clock;
-7. prints a JSON line with both kernels' numbers, then as its last line
+7. drives the training path of ET-STGCNN (hotel configuration, batch 128 x
+   N_max 57) on synthetic splits of 1,301 train scenes (11 steps an epoch,
+   the last block with 21 real scenes and 107 padding rows), 301 val and the
+   301 test scenes, into a temporary checkpoint directory:
+   `init_descriptor()` on the card against a CPU fit (bases orthonormal and
+   equal within 1e-5, anchors' inertia within 1%); one step's loss,
+   gradients and BN statistics on the card against the CPU in float32 and
+   float64, on the epoch's first block and on its padded last block (loss
+   within 1e-5 relative, every gradient tensor as close to the float64 one
+   as the CPU's float32 is, within 1e-4 of that tensor's largest entry more
+   (at least a thousandth of the largest entry of any gradient tensor, for
+   the tensors whose true gradient is 0), BN statistics within 1e-5); `fit(3)` (losses finite, the third epoch's
+   train loss below the first's, `model_best.msgpack` written); `load_model()`
+   and `test()`, which must launch `fused_recon_metrics` once a block and
+   give a fresh trainer that loads the checkpoint exactly the same means;
+   `fit(resume=True)` from the state written after epoch 2, which must run
+   epoch 3 only. Then ET-SGCN (zara1 configuration): `init_descriptor()`,
+   one epoch, `test()`. It prints the median train-step time (host clock, a
+   synchronize at each end) over the steps of epochs 2-3, the epoch seconds,
+   trained trajectories per second, the seconds of `init_descriptor()` split
+   into the basis fit (host SVD) and k-means, and where a step's time goes
+   (to_device, forward, backward, optimizer by CUDA events and by the host
+   clock; the loss's einsum reconstruction alone);
+8. prints a JSON line with both kernels' numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
-with torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and
-prints the device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2,
+and one training epoch of ET-STGCNN with torch.profiler, writes the tables to
+OUT_DIR/profile_<run>.txt and prints the device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2,
 then builds the sources of the same names in OLD_CSRC_DIR (another version of
 the kernels, with the same C interface), times both versions of each kernel
 in turns (old, new, new, old) by the three methods of step 6, prints the
@@ -62,6 +85,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -87,6 +111,7 @@ GRAPH_LAUNCHES_EVAL, GRAPH_LAUNCHES_SERVE = 20, 15
 # rate outside the tensor cores, at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+TRAIN_SCENES, TRAIN_BATCH, TRAIN_EPOCHS = 1301, 128, 3
 # Each kernel's span in the trainer and the predictor, and a part of its
 # name in the profiler's trace.
 KERNEL_SPANS = {"eval.recon_metrics": "recon_metrics_kernel",
@@ -599,6 +624,420 @@ def _serve(name, cfg, splits, requests):
     return card_p, launches
 
 
+def _sync_ms(fn):
+    """(result, host ms, device ms) of fn: the host clock with a synchronize
+    at each end, and two CUDA events around the same work (the stretch of the
+    device's timeline the work takes, its idle gaps included)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(stop)
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _timed_fit_parts(facade, sync):
+    """Wrap the facade's `fit_basis` and `generate_anchors` so that a call of
+    calculate_parameters notes the seconds of each (after `sync()`) and, for
+    the anchors, the inertia of the fitted centres on their coefficients.
+    Returns (notes, undo)."""
+    from eigentrajectory_tpu_torch.etspace import anchor
+
+    notes = {"basis_s": 0.0, "kmeans_s": 0.0, "inertia": []}
+    fit_basis, generate_anchors = facade.fit_basis, facade.generate_anchors
+
+    def timed_basis(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fit_basis(*args, **kw)
+        sync()
+        notes["basis_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_anchors(generator, pred_norm, u_pred, num_samples):
+        sync()
+        t0 = time.perf_counter()
+        out = generate_anchors(generator, pred_norm, u_pred, num_samples)
+        sync()
+        notes["kmeans_s"] += time.perf_counter() - t0
+        coef = (pred_norm.flatten(1) @ u_pred).float()
+        notes["inertia"].append(float(anchor._assign_update(coef, out.T.contiguous())[1]))
+        return out
+
+    facade.fit_basis, facade.generate_anchors = timed_basis, timed_anchors
+
+    def undo():
+        facade.fit_basis, facade.generate_anchors = fit_basis, generate_anchors
+
+    return notes, undo
+
+
+def _check_descriptor(name, card, tr, tr_cpu):
+    """init_descriptor() on the card and on the CPU from the same seed."""
+    import torch
+    from eigentrajectory_tpu_torch.etspace import facade
+
+    fits = {}
+    for label, trainer, sync in (("card", tr, torch.cuda.synchronize), ("cpu", tr_cpu, lambda: None)):
+        notes, undo = _timed_fit_parts(facade, sync)
+        try:
+            t0 = time.perf_counter()
+            trainer.init_descriptor()
+            sync()
+            notes["total_s"] = time.perf_counter() - t0
+        finally:
+            undo()
+        fits[label] = notes
+    et, et_cpu = tr.et, tr_cpu.et
+    k = tr.cfg.k
+    eye = torch.eye(k, device="cuda")
+    basis_gap = ortho = 0.0
+    for basis, basis_cpu in ((et.basis_m, et_cpu.basis_m), (et.basis_s, et_cpu.basis_s)):
+        for u, u_cpu in zip(basis, basis_cpu):
+            if not torch.isfinite(u).all():
+                raise AssertionError(f"{name}: non-finite basis")
+            ortho = max(ortho, float((u.T @ u - eye).abs().max()))
+            basis_gap = max(basis_gap, float((u.cpu() - u_cpu).abs().max()))
+    if ortho > 1e-5 or basis_gap > 1e-5:
+        raise AssertionError(f"{name}: bases off orthonormal by {ortho:.2e}, card vs CPU fit "
+                             f"{basis_gap:.2e} (both must be <= 1e-5)")
+    anchor_gap = 0.0
+    for a, a_cpu in ((et.anchor_m, et_cpu.anchor_m), (et.anchor_s, et_cpu.anchor_s)):
+        if tuple(a.shape) != (k, tr.cfg.num_samples) or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: anchors {tuple(a.shape)} or non-finite")
+        anchor_gap = max(anchor_gap, float((a.cpu() - a_cpu).abs().max()))
+    for got, want in zip(fits["card"]["inertia"], fits["cpu"]["inertia"]):
+        if abs(got - want) > 0.01 * want:
+            raise AssertionError(f"{name}: k-means inertia on the card {got} vs CPU fit {want}")
+    c = fits["card"]
+    print(f"[{card}] {name} init_descriptor() on the card {c['total_s']:.3f} s: basis fit "
+          f"(normalization + host float64 SVD) {c['basis_s']:.3f} s, k-means "
+          f"{c['kmeans_s']:.3f} s; on the CPU {fits['cpu']['total_s']:.3f} s "
+          f"(k-means {fits['cpu']['kmeans_s']:.3f} s). Bases orthonormal within {ortho:.2e}, "
+          f"card vs CPU fit {basis_gap:.2e}; anchors' inertia (moving, static) card "
+          f"{c['inertia']} vs CPU {fits['cpu']['inertia']}, max |anchor difference| "
+          f"{anchor_gap:.2e}", flush=True)
+    return c
+
+
+def _copy_trainer(tr, device, dtype):
+    """A trainer of tr's configuration and splits on `device` with tr's
+    weights, BN statistics and ET parameters."""
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    other = ETTorchTrainer(tr.cfg, tag=tr.tag, device=device, dtype=dtype,
+                           datasets=(tr.data_train, tr.data_val, tr.data_test))
+    other.model.load_state_dict(tr.model.state_dict())
+    other._set_et(tr.et)
+    return other
+
+
+def _check_one_step(name, tr, batch, label):
+    """One step's loss, gradients and BN statistics from the same weights on
+    the card, on the CPU in float32 and on the CPU in float64. The weights do
+    not move (no optimizer update) and the card's BN statistics are put back."""
+    import torch
+
+    runs = {}
+    stats_before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    for key, trainer in (("card", tr), ("cpu32", _copy_trainer(tr, "cpu", torch.float32)),
+                         ("cpu64", _copy_trainer(tr, "cpu", torch.float64))):
+        trainer.model.train()
+        loss = trainer.loss_and_grads(*trainer._to_device(batch))
+        trainer.model.eval()
+        runs[key] = (float(loss),
+                     {n: p.grad.detach().double().cpu()
+                      for n, p in trainer.model.named_parameters() if p.grad is not None},
+                     {n: b.detach().double().cpu() for n, b in trainer.model.named_buffers()})
+    tr.model.load_state_dict(stats_before)
+    (l_card, g_card, s_card), (l_32, g_32, s_32), (l_64, g_64, s_64) = (
+        runs[k] for k in ("card", "cpu32", "cpu64"))
+    for other, what in ((l_32, "CPU f32"), (l_64, "CPU f64")):
+        if not abs(l_card - other) <= 1e-5 * abs(other):
+            raise AssertionError(f"{name} {label}: step loss card {l_card} vs {what} {other}")
+    if set(g_card) != set(g_64) or not g_card:
+        raise AssertionError(f"{name} {label}: gradients of other parameters on the card")
+    # A tensor whose true gradient is 0 (a conv bias in front of a BatchNorm)
+    # holds rounding noise of the size of the gradients around it: its scale
+    # is at least a thousandth of the largest entry of any gradient tensor.
+    floor = 1e-3 * max(float(ref.abs().max()) for ref in g_64.values())
+    worst = (0.0, 0.0, "")
+    for n, ref in g_64.items():
+        e_card = float((g_card[n] - ref).abs().max())
+        e_cpu = float((g_32[n] - ref).abs().max())
+        top = max(float(ref.abs().max()), floor)
+        if not e_card <= e_cpu + 1e-4 * top:
+            raise AssertionError(f"{name} {label}: gradient of {n}: |card - f64| {e_card:.3e}, "
+                                 f"|CPU f32 - f64| {e_cpu:.3e}, scale {top:.3e}")
+        worst = max(worst, (e_card / top, e_cpu / top, n))
+    stat_gap = 0.0
+    for n, ref in s_64.items():
+        gap = float((s_card[n] - ref).abs().max())
+        if not torch.allclose(s_card[n], ref, atol=1e-5, rtol=1e-5) or \
+                not torch.allclose(s_card[n], s_32[n], atol=1e-5, rtol=1e-5):
+            raise AssertionError(f"{name} {label}: BN statistic {n} card vs CPU: {gap:.3e}")
+        stat_gap = max(stat_gap, gap)
+    print(f"{name} one step, {label} ({int(batch.scene_valid.sum())} real scenes of "
+          f"{len(batch.scene_valid)}): loss card {l_card:.8f}, CPU f32 {l_32:.8f}, CPU f64 "
+          f"{l_64:.8f}; {len(g_64)} gradient tensors, worst |card - f64| / the tensor's scale "
+          f"{worst[0]:.2e} (CPU f32: {worst[1]:.2e}) at {worst[2]}; {len(s_64)} BN "
+          f"statistics, max |card - f64| {stat_gap:.2e}", flush=True)
+
+
+def _loss_recon_ms(tr, batch, iters=20):
+    """The reconstruction inside the training loss, alone, at the step's
+    shape: einsum with the basis, denormalize and select, for both branches,
+    forward and forward + backward, by CUDA events (mean of `iters`)."""
+    import torch
+    from eigentrajectory_tpu_torch.etspace.descriptor import reconstruct
+    from eigentrajectory_tpu_torch.etspace.facade import moving_mask
+    from eigentrajectory_tpu_torch.etspace.normalizer import compute_norm_params
+
+    obs = tr._to_device(batch)[0]
+    p = compute_norm_params(obs, eps=1e-8)
+    p_s = type(p)(*(x[:, None] for x in p))
+    mask = moving_mask(obs, tr.cfg.static_dist)[:, None, :, None, None]
+    b, n = obs.shape[:2]
+    coef = torch.randn(b, tr.cfg.k, n, tr.cfg.num_samples, device="cuda", requires_grad=True)
+
+    def forward():
+        return torch.where(mask, reconstruct(coef, tr.et.basis_m.U_pred, p_s, True),
+                           reconstruct(coef, tr.et.basis_s.U_pred, p_s, False))
+
+    def both():
+        coef.grad = None
+        forward().sum().backward()
+
+    return _call_ms(forward, iters), _call_ms(both, iters)
+
+
+def _step_parts(card, name, tr, epoch):
+    """Where a train step's time goes: the four parts of each step of one
+    epoch, each between two CUDA events and on the host clock with a
+    synchronize at each end; medians over the epoch's steps."""
+    from eigentrajectory_tpu_torch.data.batching import SceneBatcher
+
+    parts = {k: ([], []) for k in ("to_device", "forward", "backward", "optimizer")}
+
+    def timed(part, fn):
+        out, host_ms, device_ms = _sync_ms(fn)
+        parts[part][0].append(host_ms)
+        parts[part][1].append(device_ms)
+        return out
+
+    tr.model.train()
+    batches = list(SceneBatcher(tr.data_train, tr.cfg.batch_size, True, tr.n_max,
+                                seed=tr.cfg.seed + epoch))
+    for batch in batches:
+        tr.optimizer.zero_grad(set_to_none=True)
+        args = timed("to_device", lambda: tr._to_device(batch))
+        loss = timed("forward", lambda: tr._chunk_loss(*args))
+        timed("backward", loss.backward)
+        timed("optimizer", tr.apply_gradients)
+    tr.model.eval()
+    recon_fwd, recon_both = _loss_recon_ms(tr, batches[0])
+    summary = {k: (round(_median(host), 4), round(_median(dev), 4))
+               for k, (host, dev) in parts.items()}
+    print(f"[{card}] {name} train step by parts, median of {len(batches)} steps, "
+          f"(host ms with a synchronize at each end, ms between two CUDA events): "
+          f"{json.dumps(summary)}; the loss's reconstruction alone (einsum + denormalize + "
+          f"select, both branches, {tr.cfg.batch_size}x{tr.n_max} slots): forward "
+          f"{recon_fwd:.4f} ms, forward + backward {recon_both:.4f} ms", flush=True)
+
+
+def _profile_train(card, name, tr, epoch, out_dir):
+    """One training epoch under torch.profiler: device busy share of the
+    epoch's train() wall, and the kernel time launched under each train.*
+    span. A kernel counts for the span in whose host-side time window the
+    operator that launched it began: the backward's operators run on the
+    autograd thread, outside the main thread's range, so nesting alone would
+    miss them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(epoch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if busy_us <= 0:
+        raise AssertionError("profile train: the trace holds no device time")
+    windows = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name.startswith("train.") and e.device_type == DeviceType.CPU]
+    spans = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels or e.name.startswith("train"):
+            continue
+        us = sum(k.duration for k in e.kernels)
+        for span, start, end in windows:
+            if start <= e.time_range.start <= end:
+                spans[span] = spans.get(span, 0.0) + us
+                break
+        else:
+            spans["outside the spans"] = spans.get("outside the spans", 0.0) + us
+    steps = sum(1 for w in windows if w[0] == "train.optimizer")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"profile_train_{name}.txt"), "w") as f:
+        f.write(f"{card}\n{events.table(sort_by='cuda_time_total', row_limit=60)}\n")
+    per_step = {k: round(v / 1e3 / max(steps, 1), 4) for k, v in sorted(spans.items())}
+    print(f"[{card}] profiled {name} train() epoch of {steps} steps: wall {wall_ms:.3f} ms "
+          f"under the profiler, device busy {busy_us / 1e3:.3f} ms = "
+          f"{busy_us / 1e3 / wall_ms:.1%} of it; kernel ms a step by span "
+          f"{json.dumps(per_step)}", flush=True)
+
+
+def _train_phase(card, cfgs, test_data, recon, profile_dir):
+    """Step 7: the training path of ET-STGCNN, then one epoch of ET-SGCN.
+    Returns the launches of fused_recon_metrics on the path."""
+    import torch
+    from eigentrajectory_tpu_torch.data.batching import SceneBatcher
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+    from eigentrajectory_tpu_torch.train import trainer as trainer_module
+    from eigentrajectory_tpu_torch.utils.profiling import StepTimer
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for matmul and cuDNN in training")
+    train = make_synthetic_data(n_scenes=TRAIN_SCENES, max_peds=5, seed=1)
+    val = make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=2)
+    splits = (train, val, test_data)
+    train_peds = int(train.num_peds_in_seq.sum())
+    test_blocks = -(-test_data.num_scenes // EVAL_BATCH)
+
+    class SyncStepTimer(StepTimer):
+        """Times a step with a synchronize at each end."""
+
+        def start(self):
+            torch.cuda.synchronize()
+            super().start()
+
+        def stop(self):
+            torch.cuda.synchronize()
+            super().stop()
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # --- ET-STGCNN, hotel configuration ---
+        name = "stgcnn"
+        cfg = cfgs[name].replace(checkpoint_dir=ckpt_dir)
+        if cfg.batch_size != TRAIN_BATCH or cfg.n_max_peds != N_MAX:
+            raise AssertionError(f"{name}: the training cell is {TRAIN_BATCH} x {N_MAX} slots")
+        recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+        tr = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        _check_descriptor(name, card, tr, ETTorchTrainer(cfg, tag="smoke-cpu", datasets=splits,
+                                                         device="cpu"))
+        blocks = list(SceneBatcher(train, cfg.batch_size, True, N_MAX, seed=cfg.seed))
+        tail = TRAIN_SCENES % TRAIN_BATCH          # 21 real scenes, 107 padding rows
+        if len(blocks) != TRAIN_SCENES // TRAIN_BATCH + 1 or \
+                int(blocks[-1].scene_valid.sum()) != tail or tail == 0:
+            raise AssertionError("the last block of the epoch must end in padding scenes")
+        _check_one_step(name, tr, blocks[0], "first block")
+        _check_one_step(name, tr, blocks[-1], "last block")
+
+        trainer_module.StepTimer = SyncStepTimer
+        try:
+            tr.fit(num_epochs=TRAIN_EPOCHS, checkpoint_every=2)
+        finally:
+            trainer_module.StepTimer = StepTimer
+        log = tr.log
+        if not all(math.isfinite(v) for v in log["train_loss"] + log["val_loss"]):
+            raise AssertionError(f"{name}: non-finite losses {log}")
+        if len(log["train_loss"]) != TRAIN_EPOCHS or not log["train_loss"][-1] < log["train_loss"][0]:
+            raise AssertionError(f"{name}: the train loss did not fall: {log['train_loss']}")
+        path = os.path.join(tr.checkpoint_dir, "model_best.msgpack")
+        if not os.path.exists(path):
+            raise AssertionError(f"{name}: fit() wrote no model_best.msgpack")
+        steps = tr.step_timer.durations[len(blocks):]          # epochs 2 and 3
+        epochs = tr.epoch_timer.durations
+        step_ms = _median(steps) * 1e3
+        print(f"[{card}] {name} fit({TRAIN_EPOCHS}) at {cfg.batch_size}x{N_MAX} slots, "
+              f"{train.num_scenes} train scenes ({train_peds} trajectories, {len(blocks)} steps "
+              f"an epoch), {val.num_scenes} val scenes: train loss {log['train_loss']}, val loss "
+              f"{log['val_loss']}; train step median {step_ms:.3f} ms, min "
+              f"{min(steps) * 1e3:.3f} ms, max {max(steps) * 1e3:.3f} ms over the "
+              f"{len(steps)} steps of epochs 2-3 (host clock, a synchronize at each end); "
+              f"epoch (train + valid) seconds {[round(e, 4) for e in epochs]}; "
+              f"{train_peds / _median(epochs[1:]):.1f} trained trajectories/s at the median "
+              f"of epochs 2-3", flush=True)
+
+        tr.load_model()
+        res = tr.test(eval_batch=EVAL_BATCH)
+        torch.cuda.synchronize()
+        launches = recon.LAUNCHES
+        if launches != test_blocks:
+            raise AssertionError(f"{name}: test() after fit() launched fused_recon_metrics "
+                                 f"{launches} times for {test_blocks} block(s)")
+        if not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{name}: non-finite metrics after training {res}")
+        fresh = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        fresh.load_model()
+        before = recon.LAUNCHES
+        res_fresh = fresh.test(eval_batch=EVAL_BATCH)
+        if res_fresh != res or recon.LAUNCHES - before != test_blocks:
+            raise AssertionError(f"{name}: a fresh trainer's test() {res_fresh} vs {res}")
+        print(f"{name} test() after fit() and load_model(): {res}, fused_recon_metrics "
+              f"launches={launches}; a fresh trainer that loads model_best.msgpack gives the "
+              f"same means exactly", flush=True)
+
+        resumed = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        resumed.fit(num_epochs=TRAIN_EPOCHS, resume=True)
+        ran = len(resumed.epoch_timer.durations)
+        last, want = resumed.log["train_loss"][-1], log["train_loss"][-1]
+        if ran != 1 or len(resumed.log["train_loss"]) != TRAIN_EPOCHS or \
+                resumed.log["train_loss"][:2] != log["train_loss"][:2] or \
+                not abs(last - want) <= 1e-3 * abs(want):
+            raise AssertionError(f"{name}: resume ran {ran} epochs, log {resumed.log} vs {log}")
+        print(f"[{card}] {name} fit(resume=True) from the state after epoch 2 ran epoch 3 only: "
+              f"train loss {last:.8f} (straight run {want:.8f}), {resumed.epoch_timer.durations[0]:.4f} s "
+              f"with the plain step timer (no synchronize a step)", flush=True)
+
+        _step_parts(card, name, tr, epoch=TRAIN_EPOCHS)
+        if profile_dir is not None:
+            _profile_train(card, name, tr, TRAIN_EPOCHS + 1, profile_dir)
+
+        # --- ET-SGCN, zara1 configuration: one epoch ---
+        name = "sgcn"
+        cfg = cfgs[name].replace(checkpoint_dir=ckpt_dir)
+        tr = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        t0 = time.perf_counter()
+        tr.init_descriptor()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        trainer_module.StepTimer = SyncStepTimer
+        try:
+            tr.fit(num_epochs=1)
+        finally:
+            trainer_module.StepTimer = StepTimer
+        if not all(math.isfinite(v) for v in tr.log["train_loss"] + tr.log["val_loss"]):
+            raise AssertionError(f"{name}: non-finite losses {tr.log}")
+        tr.load_model()
+        before = recon.LAUNCHES
+        res = tr.test(eval_batch=EVAL_BATCH)
+        if recon.LAUNCHES - before != test_blocks or \
+                not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{name}: test() after one epoch: {res}")
+        steps = tr.step_timer.durations
+        print(f"[{card}] {name} init_descriptor() {init_s:.3f} s, one epoch at "
+              f"{cfg.batch_size}x{N_MAX} slots: train loss {tr.log['train_loss']}, val loss "
+              f"{tr.log['val_loss']}; train step median {_median(steps) * 1e3:.3f} ms over "
+              f"{len(steps)} steps (the first included), epoch "
+              f"{tr.epoch_timer.durations[0]:.3f} s; test() {res}", flush=True)
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -715,6 +1154,9 @@ def main(argv):
     if profile_dir is not None:
         for label, (wall_s, fn) in walls.items():
             _profile(label, fn, card, wall_s, profile_dir)
+
+    # --- 7. the training path ---
+    recon_metrics_launches += _train_phase(card, cfgs, data, recon, profile_dir)
 
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",

@@ -4,16 +4,21 @@ The PyTorch counterpart of `eigentrajectory_tpu`. Module names follow the JAX
 package so that each part can be found beside its reference; the JAX package
 stays the reference every module here is tested against.
 
-Layer map (the sequenced evaluation and serving paths of ET-STGCNN and ET-SGCN):
+Layer map (the sequenced training, evaluation and serving paths of ET-STGCNN
+and ET-SGCN):
   config          typed experiment configuration
-  data            trajectory windowing + padded scene batches
-  etspace         normalizer / descriptor projection / anchor refine / facade
+  data            trajectory windowing, augmentation + padded scene batches
+  etspace         normalizer / descriptor fit + projection / k-means anchors
+                  + refine / facade with the training losses
   models          the predictor registry (stgcnn, sgcn)
   metrics         min-of-S ADE/FDE/TCC/COL with a leading scene axis
   ops             hand-written CUDA kernels with their plain PyTorch versions
-  interop         flax msgpack checkpoints -> PyTorch modules and tensors
-  train           evaluation engine (`ETTorchTrainer.test()`)
+  interop         flax msgpack checkpoints <-> PyTorch modules and tensors
+  train           training + evaluation engine (`ETTorchTrainer`:
+                  `init_descriptor()`, `fit()`, `load_model()`, `test()`)
   inference       serving API (`ETPredictor.predict()`)
+  utils           step timer and torch.profiler helpers
+  trainval        the CLI (`python -m eigentrajectory_tpu_torch.trainval`)
 
 Nothing here imports JAX.
 """

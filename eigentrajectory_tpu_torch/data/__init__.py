@@ -1,3 +1,3 @@
 from .batching import SceneBatch, SceneBatcher, pad_scenes
-from .dataset import TrajectoryData, load_trajectory_data
+from .dataset import TrajectoryData, augment_trajectory, load_trajectory_data
 from .synthetic import make_synthetic_data

@@ -3,8 +3,9 @@
 A copy of the NumPy path of `eigentrajectory_tpu/data/dataset.py`: sliding
 windows of obs_len+pred_len frames, keeping only pedestrians observed at every
 frame of the window, 4-decimal coordinate rounding, the strict `> min_ped`
-scene filter and a quadratic-polyfit non-linearity flag. Its output is
-bitwise equal to the JAX package's (tests/test_torch_config_data.py).
+scene filter and a quadratic-polyfit non-linearity flag, and the flip
+augmentation of the descriptor fit. Its output is bitwise equal to the JAX
+package's (tests/test_torch_config_data.py).
 """
 from __future__ import annotations
 
@@ -130,3 +131,24 @@ def load_trajectory_data(
         num_peds_in_seq=counts,
         seq_start_end=[(int(a), int(b)) for a, b in zip(bounds, bounds[1:])],
     )
+
+
+def augment_trajectory(
+    obs_traj: np.ndarray, pred_traj: np.ndarray, flip: bool = True, reverse: bool = True
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Flip augmentation of the descriptor fit.
+
+    The flip branch short-circuits reverse, as in the JAX package, so with the
+    defaults only the y-flip doubling is applied.
+    """
+    if flip:
+        flip_mul = np.array([[[1.0, -1.0]]], dtype=obs_traj.dtype)
+        obs_traj = np.concatenate([obs_traj, obs_traj * flip_mul], axis=0)
+        pred_traj = np.concatenate([pred_traj, pred_traj * flip_mul], axis=0)
+    elif reverse:
+        obs_len = obs_traj.shape[1]
+        full = np.concatenate([obs_traj, pred_traj], axis=1)
+        rev = full[:, ::-1]
+        obs_traj = np.concatenate([obs_traj, rev[:, :obs_len]], axis=0)
+        pred_traj = np.concatenate([pred_traj, rev[:, obs_len:]], axis=0)
+    return obs_traj, pred_traj

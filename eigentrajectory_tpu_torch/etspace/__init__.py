@@ -1,4 +1,5 @@
-from .anchor import refine
-from .descriptor import ETBasis, project, reconstruct, reconstruct_norm
-from .facade import ETParams, et_forward, moving_mask
+from .anchor import generate_anchors, kmeans_fit, kmeans_predict, refine
+from .descriptor import (ETBasis, fit_basis, project, reconstruct, reconstruct_norm,
+                         truncated_svd)
+from .facade import ETParams, calculate_parameters, et_forward, moving_mask
 from .normalizer import NormParams, compute_norm_params, denormalize, normalize

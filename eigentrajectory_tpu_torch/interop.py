@@ -1,9 +1,12 @@
-"""Checkpoints of the JAX package, read into PyTorch.
+"""Checkpoints in the JAX package's format, read into PyTorch and written
+from it.
 
 `read_flax_msgpack` decodes a flax `serialization.to_bytes` file with no
 dependency beyond NumPy (neither flax nor the `msgpack` package), and
 `params_from_jax` maps the decoded {params, batch_stats, et} tree onto the
-port's module names and `ETParams`.
+port's module names and `ETParams`. `params_to_jax` and `write_flax_msgpack`
+are their inverses: a checkpoint the port writes is one the JAX package's
+`load_model` reads.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .etspace.descriptor import ETBasis
 from .etspace.facade import ETParams
@@ -110,6 +114,74 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
     return tree
 
 
+def _head(n: int, fix: Tuple[int, int], sized: Tuple[Tuple[int, str], ...]) -> bytes:
+    """The header of a msgpack object of length n: the one-byte form
+    (base | n) up to its limit, else the smallest sized form that holds n."""
+    if fix is not None and n <= fix[1]:
+        return bytes([fix[0] | n])
+    for code, fmt in sized:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"object of length {n} is too long for msgpack")
+
+
+def _pack(obj: Any) -> bytes:
+    """msgpack bytes of a tree of dicts (str keys), lists, ndarrays, numpy
+    scalars, ints, floats, str, bytes, bool and None, each in the shortest
+    encoding, as the `msgpack` package chooses them, with ndarrays and numpy
+    scalars in flax's extension types."""
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, bool):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        if 0 <= obj:
+            return _head(obj, (0x00, 0x7F), ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                                             (0xCF, ">Q")))
+        if obj >= -32:
+            return struct.pack(">b", obj)
+        for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+            if obj >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                return bytes([code]) + struct.pack(fmt, obj)
+        raise ValueError(f"integer {obj} is too large for msgpack")
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _head(len(raw), (0xA0, 31), ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))) + raw
+    if isinstance(obj, (bytes, bytearray)):
+        return _head(len(obj), None, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        return _head(len(obj), (0x90, 15), ((0xDC, ">H"), (0xDD, ">I"))) + \
+            b"".join(_pack(x) for x in obj)
+    if isinstance(obj, dict):
+        return _head(len(obj), (0x80, 15), ((0xDE, ">H"), (0xDF, ">I"))) + \
+            b"".join(_pack(str(k)) + _pack(v) for k, v in obj.items())
+    if isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        arr = np.asarray(obj)
+        if arr.dtype.hasobject:
+            raise ValueError("object arrays cannot be written")
+        data = _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            head = bytes([fixext[len(data)]])
+        else:
+            head = _head(len(data), None, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        return head + struct.pack(">b", code) + data
+    raise TypeError(f"cannot write a {type(obj).__name__} to msgpack")
+
+
+def write_flax_msgpack(path: str, tree: Dict[str, Any]) -> None:
+    """Write a nested dict of numpy arrays as flax's `serialization.to_bytes`
+    writes a state dict (the inverse of `read_flax_msgpack`). Every object
+    gets the encoding flax gives it; the keys go out in the tree's own order
+    (flax reads any order)."""
+    data = _pack(tree)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 # Leaf names of the JAX layers -> the port's parameter and buffer names.
 _PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight", "alpha": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -148,3 +220,53 @@ def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETPa
         basis_s=ETBasis(t(et["basis_s"]["U_obs"]), t(et["basis_s"]["U_pred"])),
         anchor_m=t(et["anchor_m"]), anchor_s=t(et["anchor_s"]))
     return state, params
+
+
+def jax_param_paths(model: nn.Module) -> Dict[str, str]:
+    """The JAX package's path ("st_gcn_0/res_bn/scale") of every parameter
+    and statistic of `model`, by the port's name ("st_gcn_0.res_bn.weight").
+    The layers that are built and never called have no counterpart and are
+    left out."""
+    unused = getattr(model, "unused_prefixes", lambda: ())()
+    paths = {}
+    for prefix, module in model.named_modules():
+        own = dict(module.named_parameters(recurse=False))
+        own.update(module.named_buffers(recurse=False))
+        for name in own:
+            full = f"{prefix}.{name}" if prefix else name
+            if full.startswith(unused):
+                continue
+            if name == "weight":
+                leaf = "kernel" if isinstance(module, (nn.Conv2d, nn.Linear)) else \
+                    "scale" if "running_mean" in own else "alpha"
+            else:
+                leaf = {"bias": "bias", "running_mean": "mean", "running_var": "var"}[name]
+            paths[full] = "/".join(prefix.split(".") + [leaf])
+    return paths
+
+
+def params_to_jax(model: nn.Module, et: ETParams) -> Dict[str, Any]:
+    """The {params, batch_stats, et} tree of the JAX package's checkpoint from
+    the port's predictor and ET parameters (the inverse of `params_from_jax`),
+    as float32 numpy arrays: linear weights transposed back to (in, out),
+    keys sorted at every level as the JAX trainer's trees are, the ET
+    parameters in their field order."""
+    def arr(x):
+        return np.ascontiguousarray(x.detach().cpu().numpy().astype(np.float32))
+
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    linear = {f"{p}.weight" for p, m in model.named_modules() if isinstance(m, nn.Linear)}
+    for name, path in sorted(jax_param_paths(model).items(), key=lambda kv: kv[1]):
+        *parents, leaf = path.split("/")
+        node = tree["batch_stats" if leaf in ("mean", "var") else "params"]
+        for key in parents:
+            node = node.setdefault(key, {})
+        value = arr(tensors[name])
+        node[leaf] = np.ascontiguousarray(value.T) if name in linear else value
+    tree["et"] = {
+        "basis_m": {"U_obs": arr(et.basis_m.U_obs), "U_pred": arr(et.basis_m.U_pred)},
+        "basis_s": {"U_obs": arr(et.basis_s.U_obs), "U_pred": arr(et.basis_s.U_pred)},
+        "anchor_m": arr(et.anchor_m), "anchor_s": arr(et.anchor_s)}
+    return tree

@@ -43,7 +43,16 @@ class MaskedBatchNorm2d(nn.Module):
     Eval mode normalizes with the running statistics. Train mode normalizes
     each scene with its own biased statistics over (H, valid W), as the JAX
     layer does on one vmapped scene, and moves the running statistics
-    (momentum 0.1, unbiased variance) by the mean of the per-scene updates.
+    (momentum 0.1, unbiased variance) to the mean of the per-scene updates
+    weighted by scene validity, as the JAX trainer averages them: a scene
+    counts if it has a valid pedestrian (every scene, without a mask), so
+    the padding rows of a block's tail do not pull the statistics toward
+    their zeros. The divisor is max(valid scenes, 1).
+
+    One forward is one update from the statistics it finds. A caller that
+    splits a step into chunks restores the pre-step statistics before each
+    chunk and averages the chunks' results (`ETTorchTrainer.loss_and_grads`);
+    letting the chunks update in turn would compound the momentum.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -64,14 +73,18 @@ class MaskedBatchNorm2d(nn.Module):
                 m = torch.ones_like(x[:, :1, :1, :])
             else:
                 m = mask.to(x.dtype)[:, None, None, :]           # (B, 1, 1, W)
-            cnt = x.shape[2] * torch.clamp_min(m.sum(dim=3, keepdim=True), 1.0)
+            peds = m.sum(dim=3, keepdim=True)                    # (B, 1, 1, 1)
+            cnt = x.shape[2] * torch.clamp_min(peds, 1.0)
             mean = (x * m).sum(dim=(2, 3), keepdim=True) / cnt   # (B, C, 1, 1)
             var = (((x - mean) ** 2) * m).sum(dim=(2, 3), keepdim=True) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                w = (peds > 0).to(x.dtype)                       # scene validity
+                wsum = torch.clamp_min(w.sum(), 1.0)
                 m_ = self.momentum
-                self.running_mean.mul_(1 - m_).add_(m_ * mean.mean(dim=0).flatten())
-                self.running_var.mul_(1 - m_).add_(m_ * unbiased.mean(dim=0).flatten())
+                for stat, new in ((self.running_mean, mean), (self.running_var, unbiased)):
+                    per_scene = (1 - m_) * stat[None, :] + m_ * new[:, :, 0, 0]   # (B, C)
+                    stat.copy_((per_scene * w[:, :, 0, 0]).sum(dim=0) / wsum)
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * inv * self.weight[None, :, None, None] + \
             self.bias[None, :, None, None]

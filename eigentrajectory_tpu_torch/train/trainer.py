@@ -1,43 +1,61 @@
-"""Evaluation engine for the sequenced regime.
+"""Training and evaluation engine for the sequenced regime.
 
-The counterpart of the evaluation half of
-`eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer.load_model`, the
-sequenced eval step and `test()`). Padded blocks of scenes go through the ET
-facade with the scene axis written out; the coefficients are flattened to
-one pedestrian axis and reconstructed, denormalized and scored by the fused
-kernel of `ops/recon.py` (the CUDA kernel on the card, its plain version on
-the CPU); COL is computed per scene.
+The counterpart of `eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer`) for
+the sequenced predictors. Padded blocks of scenes go through the ET facade
+with the scene axis written out.
 
-Training (AdamW, masked-BN statistic updates, gradient accumulation) is not
-ported yet.
+Training: the step loss is the sum over the block's scenes of the three
+per-scene losses (non-finite ones zeroed, padding scenes weighted 0) divided
+by `cfg.batch_size`; its gradient goes through the JAX trainer's optimizer
+chain in the same order: NaN entries zeroed, global-norm clip as optax writes
+it, AdamW with decoupled decay, the learning rate keyed on the epoch.
+`cfg.micro_batches` > 1 accumulates the gradient over chunks of the block;
+the result equals the whole-block step, the masked-BN statistics included.
+
+Evaluation: the coefficients are flattened to one pedestrian axis and
+reconstructed, denormalized and scored by the fused kernel of `ops/recon.py`
+(the CUDA kernel on the card, its plain version on the CPU); COL is computed
+per scene.
+
+`save_model` writes `model_best.msgpack` in the JAX package's format, so
+either package loads it. The resume state (`resume.pt`) is the port's own:
+an optax state tree and a JAX key mean nothing to `torch.optim`.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Optional
+import pickle
+import time
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import metrics as M
 from ..config import ExpConfig, resolve_dataset_dir
 from ..data.batching import SceneBatcher
-from ..data.dataset import load_trajectory_data
+from ..data.dataset import augment_trajectory, load_trajectory_data
 from ..etspace.descriptor import ETBasis
-from ..etspace.facade import ETParams, et_forward
-from ..interop import params_from_jax, read_flax_msgpack
+from ..etspace.facade import ETParams, calculate_parameters, et_forward
+from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_flax_msgpack,
+                       write_flax_msgpack)
 from ..models import get_baseline
 from ..ops.recon import fused_recon_metrics
+from ..utils.profiling import StepTimer, trace_annotation
 
 
 class ETTorchTrainer:
-    """Evaluation of one (baseline, dataset) experiment on one device.
+    """Training and evaluation of one (baseline, dataset) experiment on one
+    device.
 
     `datasets` = (train, val, test) TrajectoryData overrides loading the
     splits from `cfg.dataset_dir`. `device` defaults to the card; tests pass
     "cpu". `dtype` is the type of the weights and activations: float32, the
     only type the CUDA kernels take, or float64 on the CPU for a reference
-    that f32 rounding does not reach.
+    that f32 rounding does not reach. The initial weights and the k-means
+    draws of `init_descriptor` come from `cfg.seed`.
     """
 
     def __init__(self, cfg: ExpConfig, tag: str = "EigenTrajectory-TPU",
@@ -66,8 +84,231 @@ class ETTorchTrainer:
             self.data_val.max_peds_per_scene,
             self.data_test.max_peds_per_scene,
         )
-        self.model = self.baseline.make_model(cfg).to(self.device, dtype).eval()
+        self.log: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
+        # Optional per-step wall-clock meter (set by fit()); it measures the
+        # enqueue of a step, not its device time: train() does not wait for
+        # the device inside the loop.
+        self.step_timer: Optional[StepTimer] = None
+        # A CPU generator, whatever the device: see etspace/anchor.py.
+        self.generator = torch.Generator().manual_seed(cfg.seed)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            model = self.baseline.make_model(cfg)
+        # Train mode only inside train(): no evaluation moves the BN statistics.
+        self.model = model.to(self.device, dtype).eval()
+        self.optimizer = self._make_optimizer()
         self.et: Optional[ETParams] = None
+
+    def _make_optimizer(self) -> torch.optim.AdamW:
+        """AdamW as optax.adamw(lr, weight_decay): betas 0.9/0.999, eps 1e-8,
+        decoupled decay, no decay on the parameters whose JAX path holds a
+        string of `cfg.wd_exclude`."""
+        cfg, paths = self.cfg, jax_param_paths(self.model)
+        decay, no_decay = [], []
+        for name, param in self.model.named_parameters():
+            path = paths.get(name, name.replace(".", "/"))
+            excluded = any(sub in path for sub in cfg.wd_exclude)
+            (no_decay if excluded else decay).append(param)
+        groups = [{"params": decay, "weight_decay": cfg.weight_decay}]
+        if no_decay:
+            groups.append({"params": no_decay, "weight_decay": 0.0})
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def _to_device(self, batch):
+        """(obs, pred, ped_valid, scene_valid) of a SceneBatch on the device."""
+        obs, pred = (torch.from_numpy(x).to(self.device, self.dtype)
+                     for x in (batch.obs, batch.pred))
+        valid, scene_valid = (torch.from_numpy(x).to(self.device)
+                              for x in (batch.ped_valid, batch.scene_valid))
+        return obs, pred, valid, scene_valid
+
+    # ----------------------------------------------------------- descriptor
+    def init_descriptor(self):
+        """One-time ET descriptor and anchor fit over the train and val splits
+        (flip-augmented)."""
+        obs = np.concatenate([self.data_train.obs_traj, self.data_val.obs_traj], axis=0)
+        pred = np.concatenate([self.data_train.pred_traj, self.data_val.pred_traj], axis=0)
+        obs, pred = augment_trajectory(obs, pred)
+        self._set_et(calculate_parameters(
+            self.generator, obs, pred, self.cfg.k, self.cfg.num_samples,
+            self.cfg.static_dist, device=self.device))
+
+    def _set_et(self, et: ETParams):
+        to = lambda x: x.to(self.device, self.dtype).contiguous()
+        self.et = ETParams(
+            basis_m=ETBasis(*map(to, et.basis_m)), basis_s=ETBasis(*map(to, et.basis_s)),
+            anchor_m=to(et.anchor_m), anchor_s=to(et.anchor_s))
+
+    # ---------------------------------------------------------- train steps
+    def _chunk_loss(self, obs, pred, valid, scene_valid) -> torch.Tensor:
+        """The share of the step loss of one chunk of scenes: per-scene
+        losses, non-finite ones zeroed, padding scenes weighted 0, summed and
+        divided by the FULL cfg.batch_size, so that the chunks' gradients add
+        up to the whole block's."""
+        out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
+                         pred_traj=pred)
+        losses = (out["loss_eigentraj"] + out["loss_euclidean_ade"]
+                  + out["loss_euclidean_fde"])                               # (B,)
+        losses = torch.nan_to_num(losses, nan=0.0, posinf=0.0, neginf=0.0)
+        return (losses * scene_valid.to(losses.dtype)).sum() / self.cfg.batch_size
+
+    def _chunk_backward(self, obs, pred, valid, scene_valid) -> torch.Tensor:
+        """Add one chunk's gradient to `.grad`; returns its share of the loss."""
+        with record_function("train.forward"):
+            loss = self._chunk_loss(obs, pred, valid, scene_valid)
+        with record_function("train.backward"):
+            loss.backward()
+        return loss.detach()
+
+    def loss_and_grads(self, obs, pred, valid, scene_valid) -> torch.Tensor:
+        """Step loss of one block (a 0-dim tensor on the device) with its
+        gradient left in the parameters' `.grad` and the BN statistics moved
+        once. The model must be in train mode.
+
+        With `cfg.micro_batches` > 1 the block goes through in chunks. Every
+        chunk starts from the pre-step BN statistics, and the chunks' updated
+        statistics are averaged by their counts of valid scenes.
+        """
+        m = self.cfg.micro_batches
+        self.optimizer.zero_grad(set_to_none=True)
+        if m <= 1:
+            return self._chunk_backward(obs, pred, valid, scene_valid)
+
+        if obs.shape[0] % m:
+            raise ValueError("the block's scenes must be divisible by micro_batches")
+        stats = list(self.model.buffers())
+        pre = [b.clone() for b in stats]
+        acc = [torch.zeros_like(b) for b in stats]
+        total = wsum = 0.0
+        for chunk in zip(*(x.chunk(m) for x in (obs, pred, valid, scene_valid))):
+            for b, p in zip(stats, pre):
+                b.copy_(p)
+            total = total + self._chunk_backward(*chunk)
+            n_valid = chunk[3].sum().to(self.dtype)
+            for a, b in zip(acc, stats):
+                a.add_(b * n_valid)
+            wsum = wsum + n_valid
+        for a, b in zip(acc, stats):
+            b.copy_(a / torch.clamp_min(wsum, 1.0))
+        return total
+
+    def apply_gradients(self):
+        """One optimizer update from the gradients in `.grad`, in optax's
+        order: NaN entries -> 0 (NaN only, as optax.zero_nans), global-norm
+        clip at cfg.clip_grad as optax.clip_by_global_norm (scaled by
+        max_norm / norm only where norm >= max_norm; no epsilon), AdamW."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        for g in grads:
+            torch.nan_to_num_(g, nan=0.0, posinf=float("inf"), neginf=float("-inf"))
+        max_norm = self.cfg.clip_grad
+        if max_norm is not None and grads:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+            torch._foreach_mul_(grads, scale)
+        self.optimizer.step()
+
+    def train_step(self, obs, pred, valid, scene_valid) -> torch.Tensor:
+        """One training step on a block on the device; returns the step loss
+        as a 0-dim tensor, without waiting for the device."""
+        loss = self.loss_and_grads(obs, pred, valid, scene_valid)
+        with record_function("train.optimizer"):
+            self.apply_gradients()
+        return loss
+
+    # -------------------------------------------------------------- epochs
+    def _epoch_lr(self, epoch: int) -> float:
+        """StepLR keyed on the epoch, with a linear warm-up."""
+        lr = self.cfg.lr
+        if self.cfg.lr_schd:
+            lr = lr * (self.cfg.lr_schd_gamma ** (epoch // self.cfg.lr_schd_step))
+        if self.cfg.warmup_epochs > 0:
+            lr = lr * min(1.0, (epoch + 1) / self.cfg.warmup_epochs)
+        return lr
+
+    def _set_lr(self, lr: float):
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def train(self, epoch: int) -> float:
+        """One epoch over the shuffled train split; returns and logs the sum
+        of the step losses over the number of scenes. The losses stay on the
+        device and are read once, at the end, in step order."""
+        if self.et is None:
+            raise RuntimeError("no ET parameters: call init_descriptor() first")
+        self._set_lr(self._epoch_lr(epoch))
+        self.model.train()
+        losses = []
+        for batch in SceneBatcher(self.data_train, self.cfg.batch_size, True, self.n_max,
+                                  seed=self.cfg.seed + epoch):
+            with record_function("train.to_device"):
+                args = self._to_device(batch)
+            ctx = (self.step_timer.measure() if self.step_timer is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                losses.append(self.train_step(*args))
+        self.model.eval()
+        total = 0.0
+        for loss in torch.stack(losses).cpu().tolist():
+            total += loss
+        avg = total / max(1, self.data_train.num_scenes)
+        self.log["train_loss"].append(avg)
+        return avg
+
+    @torch.no_grad()
+    def valid(self, epoch: int) -> float:
+        """Validation loss: sum over the val scenes of (mean min-of-S FDE *
+        valid pedestrians) over the split's pedestrians, in eval mode."""
+        self.model.eval()
+        parts = []
+        for batch in SceneBatcher(self.data_val, self.cfg.batch_size, False, self.n_max):
+            obs, pred, valid, scene_valid = self._to_device(batch)
+            out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
+                             pred_traj=pred)
+            n = valid.sum(dim=1).to(self.dtype)
+            parts.append((out["loss_euclidean_fde"] * n * scene_valid.to(self.dtype)).sum())
+        total = 0.0
+        for part in torch.stack(parts).cpu().tolist():
+            total += part
+        val = total / max(1, int(self.data_val.num_peds_in_seq.sum()))
+        self.log["val_loss"].append(val)
+        return val
+
+    def fit(self, num_epochs: Optional[int] = None, verbose: bool = True,
+            resume: bool = False, checkpoint_every: int = 0):
+        """Training loop with best-val checkpointing.
+
+        `resume=True` restores the full training state from `resume.pt`
+        (starting at epoch 0 where there is none); `checkpoint_every` writes
+        that state every so many epochs.
+        """
+        num_epochs = num_epochs or self.cfg.num_epochs
+        start_epoch = self.load_resume_state() if resume else 0
+        self.epoch_timer = StepTimer()
+        self.step_timer = StepTimer()
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            with self.epoch_timer.measure():
+                with trace_annotation(f"train_epoch_{epoch}"):
+                    self.train(epoch)
+                with trace_annotation(f"valid_epoch_{epoch}"):
+                    self.valid(epoch)
+            if epoch == 0 or self.log["val_loss"][-1] < min(self.log["val_loss"][:-1]):
+                self.save_model()
+            if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+                self.save_resume_state(epoch + 1)
+            if verbose:
+                print(f"[{self.cfg.dataset}/{self.cfg.baseline}] epoch {epoch} "
+                      f"train {self.log['train_loss'][-1]:.6f} "
+                      f"val {self.log['val_loss'][-1]:.6f} "
+                      f"best {min(self.log['val_loss']):.6f} "
+                      f"({time.time() - t0:.1f}s)", flush=True)
+        if verbose and self.epoch_timer.durations:
+            ep, st = self.epoch_timer.summary(), self.step_timer.summary()
+            print(f"[timing] epochs: mean {ep['mean_s']:.3f}s p50 {ep['p50_s']:.3f}s "
+                  f"p90 {ep['p90_s']:.3f}s max {ep['max_s']:.3f}s | "
+                  f"train steps ({st.get('count', 0)}): mean {st.get('mean_s', 0):.4f}s "
+                  f"p50 {st.get('p50_s', 0):.4f}s p90 {st.get('p90_s', 0):.4f}s",
+                  flush=True)
 
     # ---------------------------------------------------------------- eval
     def _predictor_fn(self, c_obs, obs_ori, aux):
@@ -114,13 +355,12 @@ class ETTorchTrainer:
         """Mean min-of-S ADE/FDE/TCC/COL over the valid peds of the test split,
         `eval_batch` padded scenes at a time."""
         if self.et is None:
-            raise RuntimeError("no ET parameters: call load_model() first")
+            raise RuntimeError("no ET parameters: call load_model() or init_descriptor() first")
+        self.model.eval()
         meters = {k: M.AverageMeter() for k in ("ADE", "FDE", "TCC", "COL")}
         for batch in SceneBatcher(self.data_test, eval_batch, False, self.n_max):
             with record_function("eval.to_device"):
-                obs, pred = (torch.from_numpy(x).to(self.device, self.dtype)
-                             for x in (batch.obs, batch.pred))
-                valid = torch.from_numpy(batch.ped_valid).to(self.device)
+                obs, pred, valid, _ = self._to_device(batch)
             metrics = self.eval_step(obs, pred, valid)
             with record_function("eval.to_host"):
                 res = torch.stack(metrics).cpu().numpy()
@@ -129,9 +369,56 @@ class ETTorchTrainer:
         return {k: m.mean() for k, m in meters.items()}
 
     # --------------------------------------------------------- checkpoints
+    def save_model(self, filename: str = "model_best.msgpack"):
+        """Write the predictor's weights, the BN statistics and the ET
+        parameters in the JAX package's checkpoint format (float32), and the
+        loss log beside it as `log.pkl`, a dict of two lists of floats."""
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        write_flax_msgpack(os.path.join(self.checkpoint_dir, filename),
+                           params_to_jax(self.model, self.et))
+        self._save_log()
+
+    def _save_log(self):
+        with open(os.path.join(self.checkpoint_dir, "log.pkl"), "wb") as fp:
+            pickle.dump(self.log, fp)
+
+    def save_resume_state(self, epoch: int, filename: str = "resume.pt"):
+        """Full training state for crash recovery: weights, BN statistics, ET
+        parameters, optimizer moments and step counts, generator state, the
+        epoch to go on from and the loss log."""
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        state = {
+            "model": self.model.state_dict(),
+            "et": {"basis_m": tuple(self.et.basis_m), "basis_s": tuple(self.et.basis_s),
+                   "anchor_m": self.et.anchor_m, "anchor_s": self.et.anchor_s},
+            "optimizer": self.optimizer.state_dict(),
+            "generator": self.generator.get_state(),
+            "epoch": epoch,
+            "log": self.log,
+        }
+        torch.save(state, os.path.join(self.checkpoint_dir, filename))
+        self._save_log()
+
+    def load_resume_state(self, filename: str = "resume.pt") -> int:
+        """Restore the full training state; returns the epoch to resume from
+        (0, and nothing restored, where the file does not exist)."""
+        path = os.path.join(self.checkpoint_dir, filename)
+        if not os.path.exists(path):
+            return 0
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"])
+        et = state["et"]
+        self._set_et(ETParams(ETBasis(*et["basis_m"]), ETBasis(*et["basis_s"]),
+                              et["anchor_m"], et["anchor_s"]))
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"].cpu())
+        self.log = state["log"]
+        return int(state["epoch"])
+
     def load_model(self, filename: str = "model_best.msgpack"):
         """Load predictor weights, BN statistics and ET parameters from the
-        JAX package's checkpoint `checkpoint_dir/tag/dataset/filename`."""
+        checkpoint `checkpoint_dir/tag/dataset/filename`, written by either
+        package."""
         state, et = params_from_jax(read_flax_msgpack(
             os.path.join(self.checkpoint_dir, filename)))
         missing, unexpected = self.model.load_state_dict(state, strict=False)
@@ -140,7 +427,4 @@ class ETTorchTrainer:
         if missing or unexpected:
             raise KeyError(f"checkpoint does not match the model: missing {missing}, "
                            f"unexpected {unexpected}")
-        to = lambda x: x.to(self.device, self.dtype).contiguous()
-        self.et = ETParams(
-            basis_m=ETBasis(*map(to, et.basis_m)), basis_s=ETBasis(*map(to, et.basis_s)),
-            anchor_m=to(et.anchor_m), anchor_s=to(et.anchor_s))
+        self._set_et(et)

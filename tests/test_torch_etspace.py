@@ -126,3 +126,53 @@ def test_et_forward_coefficients_and_recon_match_vmapped_jax():
             else:
                 scale = max(1.0, float(np.abs(np.asarray(want[key])).max()))
                 _close(got[key], want[key], atol=1e-5 * scale, rtol=1e-5)
+
+
+def test_losses_match_vmapped_jax_per_scene():
+    """The three losses are per-scene masked means over the valid pedestrians
+    (<= 1e-5 against the JAX facade under vmap); a scene with no valid
+    pedestrian divides by 1 and gives 0."""
+    rng = np.random.default_rng(5)
+    jet, tet = _et_params(rng)
+    obs, valid = _scene_block(rng, b=4)
+    valid[3] = False
+    obs[3] = 0.0
+    pred = (obs[:, :, -1:, :] + np.cumsum(rng.normal(size=(4, 7, 12, 2)) * 0.5, axis=2)
+            ).astype(np.float32)
+    pred[~valid] = 0.0
+    want = jax.vmap(lambda o, g, v: jfacade.et_forward(
+        jet, _jax_predictor, o, v, 0.3, pred_traj=g))(
+            jnp.asarray(obs), jnp.asarray(pred), jnp.asarray(valid))
+    got = tfacade.et_forward(tet, _torch_predictor, torch.from_numpy(obs),
+                             torch.from_numpy(valid), 0.3, pred_traj=torch.from_numpy(pred))
+    assert set(got) == set(want)
+    for key in ("loss_eigentraj", "loss_euclidean_ade", "loss_euclidean_fde"):
+        assert got[key].shape == (4,)
+        _close(got[key], want[key], atol=1e-5, rtol=1e-5)
+        assert got[key][3] == 0 and (got[key][:3] > 0).all()
+    _close(got["recon_traj"], want["recon_traj"], atol=1e-4, rtol=1e-5)
+
+
+def test_loss_gradient_flows_through_the_predictor_output_alone():
+    rng = np.random.default_rng(6)
+    _, tet = _et_params(rng)
+    tet = tfacade.ETParams(*(type(x)(*(t.requires_grad_() for t in x)) if isinstance(x, tuple)
+                             else x.requires_grad_() for x in tet))
+    obs, valid = _scene_block(rng)
+    pred = np.cumsum(rng.normal(size=(3, 7, 12, 2)), axis=2).astype(np.float32)
+    obs_t = torch.from_numpy(obs).requires_grad_()
+    scale = torch.ones((), requires_grad=True)
+    seen = {}
+
+    def predictor(c_obs, obs_ori, aux):
+        seen["c_obs"] = c_obs.requires_grad
+        return _torch_predictor(c_obs, obs_ori.detach(), aux) * scale
+
+    out = tfacade.et_forward(tet, predictor, obs_t, torch.from_numpy(valid), 0.3,
+                             pred_traj=torch.from_numpy(pred))
+    total = sum(out[k].sum() for k in out if k.startswith("loss_"))
+    grads = torch.autograd.grad(total, [scale, tet.anchor_m, tet.anchor_s, tet.basis_m.U_obs,
+                                        tet.basis_s.U_obs], allow_unused=True)
+    assert seen["c_obs"] is False                 # C_obs reaches the predictor detached
+    assert grads[0] is not None and grads[0].abs() > 0
+    assert all(g is None for g in grads[1:])      # anchors and obs bases: no gradient

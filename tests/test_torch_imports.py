@@ -1,12 +1,18 @@
-"""Static check: the port and chip_smoke.py import nothing of JAX, flax,
-optax or the JAX package (whose name the port's name begins with)."""
+"""The port and chip_smoke.py import nothing of JAX, flax, optax, msgpack or
+the JAX package (whose name the port's name begins with): a static check of
+every source, and a run that imports each module of the training path in a
+fresh interpreter and looks at what got loaded."""
 import ast
 import os
 import re
+import subprocess
+import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_FORBIDDEN = re.compile(r"^(jax|flax|optax|eigentrajectory_tpu)(\.|$)")
+_FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|msgpack|eigentrajectory_tpu)(\.|$)")
 
 
 def _port_sources():
@@ -20,7 +26,7 @@ def _port_sources():
 def test_port_imports_no_jax():
     paths = _port_sources()
     assert len(paths) > 10 and os.path.exists(paths[0])
-    line_re = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|eigentrajectory_tpu)\b(?!_torch)",
+    line_re = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack|eigentrajectory_tpu)\b(?!_torch)",
                          re.M)
     for path in paths:
         with open(path) as f:
@@ -34,3 +40,22 @@ def test_port_imports_no_jax():
                 names = [node.module]
             for name in names:
                 assert not _FORBIDDEN.match(name), (path, name)
+
+
+@pytest.mark.parametrize("module", [
+    "eigentrajectory_tpu_torch.trainval",
+    "eigentrajectory_tpu_torch.train.trainer",
+    "eigentrajectory_tpu_torch.interop",
+    "eigentrajectory_tpu_torch.etspace.anchor",
+    "eigentrajectory_tpu_torch.etspace.descriptor",
+    "eigentrajectory_tpu_torch.etspace.facade",
+    "eigentrajectory_tpu_torch.utils.profiling",
+])
+def test_training_modules_load_nothing_of_jax(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'eigentrajectory_tpu'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    assert out.strip() == "[]", out

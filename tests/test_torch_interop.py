@@ -1,5 +1,6 @@
-"""The port's flax msgpack reader against flax itself, and the mapping of a
-checkpoint onto the port's modules."""
+"""The port's flax msgpack reader and writer against flax itself, the mapping
+of a checkpoint onto the port's modules and back, and a checkpoint written by
+the port read by the JAX trainer."""
 import os
 
 import numpy as np
@@ -7,8 +8,15 @@ import pytest
 import torch
 from flax import serialization
 
-from eigentrajectory_tpu_torch.interop import params_from_jax, read_flax_msgpack
-from eigentrajectory_tpu_torch.models import stgcnn
+from eigentrajectory_tpu.config import ExpConfig as JaxConfig
+from eigentrajectory_tpu.train.trainer import ETJaxTrainer
+from eigentrajectory_tpu_torch.config import ExpConfig
+from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+from eigentrajectory_tpu_torch.interop import (jax_param_paths, params_from_jax,
+                                               params_to_jax, read_flax_msgpack,
+                                               write_flax_msgpack)
+from eigentrajectory_tpu_torch.models import sgcn, stgcnn
+from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOTEL = os.path.join(REPO, "checkpoints", "parity", "hotel", "model_best.msgpack")
@@ -83,3 +91,79 @@ def test_params_from_jax_transposes_linear_kernels_only():
     with torch.no_grad():
         got = layer(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, x @ query["kernel"] + query["bias"], atol=1e-5)
+
+
+@pytest.mark.parametrize("split", ["hotel", "univ", "zara1", "zara2"])
+def test_writer_reproduces_the_committed_checkpoints_byte_for_byte(split, tmp_path):
+    path = os.path.join(REPO, "checkpoints", "parity", split, "model_best.msgpack")
+    out = tmp_path / "copy.msgpack"
+    write_flax_msgpack(str(out), read_flax_msgpack(path))
+    with open(path, "rb") as f:
+        assert out.read_bytes() == f.read()
+
+
+def test_writer_matches_flax_on_scalars_and_containers(tmp_path):
+    tree = {"a": {"b": np.arange(6, dtype=np.int32).reshape(2, 3)}, "c": np.float32(1.5),
+            "d": np.zeros((0, 4), np.float64), "e": 7, "f": -200, "g": 2.5, "h": None,
+            "i": True, "j": "x" * 40, "k": [1, 70000, -5], "l": np.arange(300),
+            "m": {f"{i:02d}": i for i in range(20)}, "n": np.zeros((), np.float32)}
+    path = tmp_path / "t.msgpack"
+    write_flax_msgpack(str(path), tree)
+    # flax writes the keys sorted (this tree's are); the writer keeps the tree's order
+    assert path.read_bytes() == serialization.msgpack_serialize(tree)
+    with pytest.raises(TypeError):
+        write_flax_msgpack(str(path), {"a": object()})
+
+
+class _CFG:
+    k, num_samples = 6, 20
+
+
+@pytest.mark.parametrize("split,module", [("hotel", stgcnn), ("zara1", sgcn)])
+def test_params_to_jax_inverts_params_from_jax(split, module):
+    """The tree that comes back has the checkpoint's keys in the checkpoint's
+    order and its arrays bit for bit; the built-but-unused layers of the
+    STGCNN are left out."""
+    tree = read_flax_msgpack(
+        os.path.join(REPO, "checkpoints", "parity", split, "model_best.msgpack"))
+    state, et = params_from_jax(tree)
+    model = module.make_model(_CFG)
+    model.load_state_dict(state, strict=False)
+    back = params_to_jax(model, et)
+    want, got = list(_leaves(tree)), list(_leaves(back))
+    assert [k for k, _ in got] == [k for k, _ in want]
+    assert list(back) == ["params", "batch_stats", "et"]
+    for (key, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes(), key
+    paths = jax_param_paths(model)
+    assert not any(name.startswith(("tpcnn_4", "prelu_4")) for name in paths)
+    assert len(paths) == len(want) - 6               # all but the six ET arrays
+
+
+@pytest.mark.parametrize("baseline", ["stgcnn", "sgcn"])
+def test_checkpoint_written_by_the_port_loads_into_the_jax_trainer(baseline, tmp_path):
+    """save_model() of a trained port trainer -> ETJaxTrainer.load_model() and
+    the port's own load_model(): both test() results within 1e-4."""
+    splits = tuple(make_synthetic_data(n_scenes=n, max_peds=5, seed=seed)
+                   for n, seed in ((10, 1), (6, 2), (8, 3)))
+    kw = dict(baseline=baseline, batch_size=4, checkpoint_dir=str(tmp_path),
+              dataset="synthetic", static_dist=0.3)
+    tr = ETTorchTrainer(ExpConfig(**kw), tag="port", datasets=splits, device="cpu")
+    tr.init_descriptor()
+    tr.fit(num_epochs=2, verbose=False)
+    jtr = ETJaxTrainer(JaxConfig(**kw), tag="port", test_mode=True, datasets=splits)
+    jtr.load_model()
+    # log.pkl, two lists of floats, is written with the best checkpoint
+    n_logged = len(jtr.log["val_loss"])
+    assert n_logged == int(np.argmin(tr.log["val_loss"])) + 1
+    assert jtr.log == {k: v[:n_logged] for k, v in tr.log.items()}
+    fresh = ETTorchTrainer(ExpConfig(**kw), tag="port", datasets=splits, device="cpu")
+    fresh.load_model()
+    want, got = jtr.test(eval_batch=8), fresh.test(eval_batch=8)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
+    # the port trained BN statistics and they arrived
+    if baseline == "stgcnn":
+        var = np.asarray(jtr.batch_stats["st_gcn_0"]["tcn_bn1"]["var"])
+        np.testing.assert_array_equal(var, tr.model.st_gcn_0.tcn_bn1.running_var.numpy())
+        assert not np.allclose(var, 1.0)

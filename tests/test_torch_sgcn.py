@@ -130,3 +130,23 @@ def test_test_means_match_jax():
     for key in want:
         np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
     assert 0.0 < got["ADE"] < got["FDE"]
+
+
+def test_sgcn_has_no_statistics_and_trains_as_it_evaluates():
+    """ET-SGCN holds no normalisation layer (no buffer: its checkpoint's
+    batch_stats are empty) and its dropout rate is 0, so a train-mode forward
+    is the eval-mode forward, in the port as in the JAX package."""
+    rng = np.random.default_rng(6)
+    c_obs, ori, valid = _inputs(rng)
+    model = _torch_model()
+    assert list(model.buffers()) == []
+    assert read_flax_msgpack(CKPT)["batch_stats"] == {}
+    base = _torch_forward(model, c_obs, ori, valid)
+    np.testing.assert_array_equal(_torch_forward(model.train(), c_obs, ori, valid), base)
+    with open(CKPT, "rb") as f:
+        params = serialization.msgpack_restore(f.read())["params"]
+    jmodel = jsgcn.make_model(CFG)
+    jout = jax.vmap(lambda c, o, v: jsgcn.finalize(jmodel.apply(
+        {"params": params}, *jsgcn.prepare(c, o, {"ped_valid": v}), train=True), {}))(
+            jnp.asarray(c_obs), jnp.asarray(ori), jnp.asarray(valid))
+    np.testing.assert_allclose(base, np.asarray(jout), **TOL)

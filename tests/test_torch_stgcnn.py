@@ -132,3 +132,47 @@ def test_padding_invariance(pad):
     o_p = np.concatenate([ori, np.ones((2, 2, pad), np.float32)], axis=2)
     v_p = np.concatenate([valid, np.zeros((2, pad), bool)], axis=1)
     np.testing.assert_allclose(run(c_p, o_p, v_p)[:, :, :6], base, atol=1e-5)
+
+
+def test_masked_bn_weights_the_running_statistics_by_scene_validity():
+    """A block whose last rows are padding scenes: the running statistics
+    move to the mean of the real scenes' updates, as the JAX trainer's
+    `_tree_weighted_mean` gives (<= 1e-6), not to the plain mean over the
+    rows, which the padding rows' zeros would pull down."""
+    from eigentrajectory_tpu.models.common import MaskedBatchNorm2d as JaxBN
+    from eigentrajectory_tpu.train.trainer import _tree_weighted_mean
+    from eigentrajectory_tpu_torch.models.common import MaskedBatchNorm2d
+
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(5, 3, 4, 6)) * 2 + 1).astype(np.float32)
+    valid = np.zeros((5, 6), bool)
+    valid[0, :6], valid[1, :2], valid[2, :1] = True, True, True   # rows 3, 4: padding
+    jbn = JaxBN(3)
+    variables = jbn.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]), jnp.asarray(valid[0]))
+    _, upd = jax.vmap(lambda xi, vi: jbn.apply(variables, xi[None], vi,
+                                               mutable=["batch_stats"]))(
+        jnp.asarray(x), jnp.asarray(valid))
+    w = jnp.asarray(valid.any(axis=1), jnp.float32)
+    want = _tree_weighted_mean(upd["batch_stats"], w)
+    plain = jax.tree_util.tree_map(lambda s: s.mean(axis=0), upd["batch_stats"])
+
+    layer = MaskedBatchNorm2d(3).train()
+    layer(torch.from_numpy(x), torch.from_numpy(valid))
+    for name, got in (("mean", layer.running_mean), ("var", layer.running_var)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[name]), atol=1e-6, rtol=1e-6)
+        assert np.abs(got.numpy() - np.asarray(plain[name])).max() > 1e-2
+    # a scene with one pedestrian and one time step would divide by cnt - 1 = 0:
+    # the guard keeps the unbiased factor finite
+    one = MaskedBatchNorm2d(3).train()
+    one(torch.from_numpy(x[:1, :, :1]), torch.from_numpy(valid[2:3]))
+    assert torch.isfinite(one.running_var).all()
+
+
+def test_masked_bn_without_a_mask_counts_every_scene():
+    from eigentrajectory_tpu_torch.models.common import MaskedBatchNorm2d
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(4, 2, 3, 5)).astype(np.float32))
+    layer = MaskedBatchNorm2d(2).train()
+    layer(x)
+    want = 0.1 * x.mean(dim=(2, 3)).mean(dim=0)
+    np.testing.assert_allclose(layer.running_mean.numpy(), want.numpy(), atol=1e-6)
