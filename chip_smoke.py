@@ -68,16 +68,36 @@ CUDA toolkit. It
    into the basis fit (host SVD) and k-means, and where a step's time goes
    (to_device, forward, backward, optimizer by CUDA events and by the host
    clock; the loss's einsum reconstruction alone);
-8. prints a JSON line with both kernels' numbers, then as its last line
+8. drives the collated regime on splits of scenes of 2-20 pedestrians
+   (test 301 scenes / 3,351 pedestrians, train 1,301, val 301): both kernels
+   against their plain versions at the packed eval's N = P = 2,067 (64 full
+   tiles and 19 more); ET-PECNet (pecnet-univ configuration, committed univ
+   checkpoint) `test()` with `eval_ped_batch` 2048, which must launch
+   `fused_recon_metrics` once a packed batch (2) at N = P, with finite means
+   that agree with the CPU's within 1e-4; `predict()` of requests (a), (b)
+   and (c) as in step 5 (card vs the CPU's float64 run; (a) and (b) also
+   against its float32 run); host-clock medians of that test() and predict()
+   (b); ET-PECNet training packing 128 pedestrians into p_max = 147 slots:
+   `init_descriptor()` card vs CPU, one step's loss and gradients card vs CPU
+   float32 and float64 on the first packed batch, `fit(2)`, `load_model()` +
+   `test()` (launches as above; a fresh trainer on the written checkpoint
+   gives the same means exactly), the train-step median, epoch seconds,
+   trained trajectories per second and `init_descriptor()` seconds; then
+   ET-LB-EBM (lbebm-univ, random weights): `init_descriptor()`, one epoch,
+   `test()` and `predict()` (b), each launching its kernel, with finite
+   results;
+9. prints a JSON line with both kernels' numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
-and one training epoch of ET-STGCNN with torch.profiler, writes the tables to
-OUT_DIR/profile_<run>.txt and prints the device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2,
-then builds the sources of the same names in OLD_CSRC_DIR (another version of
-the kernels, with the same C interface), times both versions of each kernel
-in turns (old, new, new, old) by the three methods of step 6, prints the
-times and stops. Any failure raises and the exit code is not 0; without a
+(ET-PECNet's included, with the span `eval.col_gather` of the packed eval's
+scene gather) and one training epoch of ET-STGCNN and of ET-PECNet with
+torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
+device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2, then
+builds the sources of the same names in OLD_CSRC_DIR (another version of the
+kernels, with the same C interface), times both versions of each kernel in
+turns (old, new, new, old) by the three methods of step 6, prints the times
+and stops. Any failure raises and the exit code is not 0; without a
 CUDA device the script fails before it prints a result.
 """
 import json
@@ -112,6 +132,12 @@ GRAPH_LAUNCHES_EVAL, GRAPH_LAUNCHES_SERVE = 20, 15
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 TRAIN_SCENES, TRAIN_BATCH, TRAIN_EPOCHS = 1301, 128, 3
+# The collated phase: ET-PECNet (univ checkpoint) and ET-LB-EBM on splits of
+# scenes of 2-20 pedestrians, packed to EVAL_PED_BATCH pedestrians in test()
+# (P = 2,067 slots) and to TRAIN_BATCH in training (p_max = 147).
+COLLATED_MODELS = (("pecnet", "eigentrajectory-pecnet-univ.json"),
+                   ("lbebm", "eigentrajectory-lbebm-univ.json"))
+COLLATED_MAX_PEDS, EVAL_PED_BATCH, COLLATED_EPOCHS = 20, 2048, 2
 # Each kernel's span in the trainer and the predictor, and a part of its
 # name in the profiler's trace.
 KERNEL_SPANS = {"eval.recon_metrics": "recon_metrics_kernel",
@@ -595,8 +621,9 @@ def _check_request(name, label, card_p, cpu_p, ref_p, obs, ids, strict):
     return got, launches
 
 
-def _serve(name, cfg, splits, requests):
-    """The serving checks of one model; returns (card predictor, launches)."""
+def _serve(name, cfg, splits, requests, loose=(("stgcnn", "(c)"),)):
+    """The serving checks of one model; returns (card predictor, launches).
+    The requests (name, label) in `loose` are held to the float64 run alone."""
     import numpy as np
     import torch
     from eigentrajectory_tpu_torch.inference import ETPredictor
@@ -612,9 +639,9 @@ def _serve(name, cfg, splits, requests):
     for label, (obs, ids) in requests.items():
         # ET-STGCNN's inverse-distance adjacency is ill-conditioned on the
         # dense 150-ped scene: two correct f32 runs differ there by ~1e-3, so
-        # that one request is held to the float64 run alone.
+        # that request is held to the float64 run alone.
         got, n = _check_request(name, label, card_p, cpu_p, ref_p, obs, ids,
-                                strict=(name, label) != ("stgcnn", "(c)"))
+                                strict=(name, label) not in loose)
         launches += n
         if label == "(a)":
             other = _walkers(3, seed=12)
@@ -785,8 +812,12 @@ def _check_one_step(name, tr, batch, label):
                 not torch.allclose(s_card[n], s_32[n], atol=1e-5, rtol=1e-5):
             raise AssertionError(f"{name} {label}: BN statistic {n} card vs CPU: {gap:.3e}")
         stat_gap = max(stat_gap, gap)
-    print(f"{name} one step, {label} ({int(batch.scene_valid.sum())} real scenes of "
-          f"{len(batch.scene_valid)}): loss card {l_card:.8f}, CPU f32 {l_32:.8f}, CPU f64 "
+    if hasattr(batch, "scene_ids"):
+        what = (f"{int(batch.scene_ids.max()) + 1} scenes, {int(batch.ped_valid.sum())} "
+                f"pedestrians in {len(batch.ped_valid)} slots")
+    else:
+        what = f"{int(batch.scene_valid.sum())} real scenes of {len(batch.scene_valid)}"
+    print(f"{name} one step, {label} ({what}): loss card {l_card:.8f}, CPU f32 {l_32:.8f}, CPU f64 "
           f"{l_64:.8f}; {len(g_64)} gradient tensors, worst |card - f64| / the tensor's scale "
           f"{worst[0]:.2e} (CPU f32: {worst[1]:.2e}) at {worst[2]}; {len(s_64)} BN "
           f"statistics, max |card - f64| {stat_gap:.2e}", flush=True)
@@ -899,6 +930,30 @@ def _profile_train(card, name, tr, epoch, out_dir):
           f"{json.dumps(per_step)}", flush=True)
 
 
+@contextmanager
+def _synced_steps():
+    """Have the trainers that fit() makes in this block time each step with a
+    synchronize at each end."""
+    import torch
+    from eigentrajectory_tpu_torch.train import trainer as trainer_module
+    from eigentrajectory_tpu_torch.utils.profiling import StepTimer
+
+    class SyncStepTimer(StepTimer):
+        def start(self):
+            torch.cuda.synchronize()
+            super().start()
+
+        def stop(self):
+            torch.cuda.synchronize()
+            super().stop()
+
+    trainer_module.StepTimer = SyncStepTimer
+    try:
+        yield
+    finally:
+        trainer_module.StepTimer = StepTimer
+
+
 def _train_phase(card, cfgs, test_data, recon, profile_dir):
     """Step 7: the training path of ET-STGCNN, then one epoch of ET-SGCN.
     Returns the launches of fused_recon_metrics on the path."""
@@ -906,8 +961,6 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
     from eigentrajectory_tpu_torch.data.batching import SceneBatcher
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
-    from eigentrajectory_tpu_torch.train import trainer as trainer_module
-    from eigentrajectory_tpu_torch.utils.profiling import StepTimer
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 must be off for matmul and cuDNN in training")
@@ -916,17 +969,6 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
     splits = (train, val, test_data)
     train_peds = int(train.num_peds_in_seq.sum())
     test_blocks = -(-test_data.num_scenes // EVAL_BATCH)
-
-    class SyncStepTimer(StepTimer):
-        """Times a step with a synchronize at each end."""
-
-        def start(self):
-            torch.cuda.synchronize()
-            super().start()
-
-        def stop(self):
-            torch.cuda.synchronize()
-            super().stop()
 
     launches = 0
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -947,11 +989,8 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
         _check_one_step(name, tr, blocks[0], "first block")
         _check_one_step(name, tr, blocks[-1], "last block")
 
-        trainer_module.StepTimer = SyncStepTimer
-        try:
+        with _synced_steps():
             tr.fit(num_epochs=TRAIN_EPOCHS, checkpoint_every=2)
-        finally:
-            trainer_module.StepTimer = StepTimer
         log = tr.log
         if not all(math.isfinite(v) for v in log["train_loss"] + log["val_loss"]):
             raise AssertionError(f"{name}: non-finite losses {log}")
@@ -1016,11 +1055,8 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
         tr.init_descriptor()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        trainer_module.StepTimer = SyncStepTimer
-        try:
+        with _synced_steps():
             tr.fit(num_epochs=1)
-        finally:
-            trainer_module.StepTimer = StepTimer
         if not all(math.isfinite(v) for v in tr.log["train_loss"] + tr.log["val_loss"]):
             raise AssertionError(f"{name}: non-finite losses {tr.log}")
         tr.load_model()
@@ -1036,6 +1072,180 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
               f"{len(steps)} steps (the first included), epoch "
               f"{tr.epoch_timer.durations[0]:.3f} s; test() {res}", flush=True)
     return launches
+
+
+def _packed_test(name, tr, recon, p_eval, n_batches):
+    """test() of a collated trainer on the card with the launch count reset
+    just before it; the kernel must run once a packed batch, at N = P.
+    Returns (means, launches)."""
+    import torch
+    from eigentrajectory_tpu_torch.train import trainer as trainer_module
+
+    shapes, wrapper = [], trainer_module.fused_recon_metrics
+
+    def noting(c_m, *rest):
+        shapes.append(tuple(c_m.shape))
+        return wrapper(c_m, *rest)
+
+    trainer_module.fused_recon_metrics = noting
+    try:
+        recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+        res = tr.test(eval_ped_batch=EVAL_PED_BATCH)
+        torch.cuda.synchronize()
+        launches = recon.LAUNCHES
+    finally:
+        trainer_module.fused_recon_metrics = wrapper
+    if launches != n_batches or shapes != [(K, p_eval, S)] * n_batches:
+        raise AssertionError(f"{name} test(): fused_recon_metrics launched {launches} times at "
+                             f"{shapes}, expected once for each of {n_batches} packed batches "
+                             f"at N = {p_eval}")
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"{name}: non-finite metrics {res}")
+    return res, launches
+
+
+def _collated_phase(card, recon, profile_dir):
+    """Step 8: the collated regime. Returns the launches of both kernels on
+    its paths and the kernels' max abs errors at the collated shape."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data.batching import CollatedBatcher
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    test = make_synthetic_data(n_scenes=N_SCENES, max_peds=COLLATED_MAX_PEDS, seed=0)
+    train = make_synthetic_data(n_scenes=TRAIN_SCENES, max_peds=COLLATED_MAX_PEDS, seed=1)
+    val = make_synthetic_data(n_scenes=N_SCENES, max_peds=COLLATED_MAX_PEDS, seed=2)
+    splits = (train, val, test)
+    n_peds, train_peds = int(test.num_peds_in_seq.sum()), int(train.num_peds_in_seq.sum())
+    p_eval = EVAL_PED_BATCH - 1 + test.max_peds_per_scene
+    n_batches = len(CollatedBatcher(test, EVAL_PED_BATCH, False))
+    print(f"collated splits: test {test.num_scenes} scenes / {n_peds} peds (scenes of "
+          f"{test.num_peds_in_seq.min()}-{test.max_peds_per_scene}), train {train.num_scenes} / "
+          f"{train_peds}, val {val.num_scenes} / {int(val.num_peds_in_seq.sum())}; test() packs "
+          f"{n_batches} batches of P = {p_eval} slots", flush=True)
+
+    # --- 1. both kernels at the collated shape, checked and timed ---
+    case = _case(p_eval, seed=21)
+    err, rerr, _, _ = _check_pair(recon, case, "collated shape")
+    for spec in _timed_kernels(case, case):
+        _kernel_times(recon, card, *spec)
+    print(f"(at N = {p_eval} the rotating input sets fit in the L2: the cold-cache method "
+          f"reads an L2-warm kernel here)", flush=True)
+
+    cfgs = {name: load_config(os.path.join(REPO, "configs", path), checkpoint_dir=CKPT_DIR)
+            for name, path in COLLATED_MODELS}
+    recon_metrics_launches = reconstruct_launches = 0
+
+    # --- 2. ET-PECNet from the univ checkpoint: test() and predict() ---
+    name = "pecnet"
+    tr = ETTorchTrainer(cfgs[name], tag="parity", datasets=splits)
+    tr.load_model()
+    tr_cpu = ETTorchTrainer(cfgs[name], tag="parity", datasets=splits, device="cpu")
+    tr_cpu.load_model()
+    res, n = _packed_test(name, tr, recon, p_eval, n_batches)
+    recon_metrics_launches += n
+    res_cpu = tr_cpu.test(eval_ped_batch=EVAL_PED_BATCH)
+    print(f"{name} test() on the card: {res}, fused_recon_metrics launches={n} at N={p_eval}; "
+          f"on the CPU: {res_cpu}", flush=True)
+    for key, want in res_cpu.items():
+        if not abs(res[key] - want) <= ATOL + RTOL * abs(want):
+            raise AssertionError(f"{name} {key}: card {res[key]} vs CPU {want}")
+    whole = (test.obs_traj, np.repeat(np.arange(N_SCENES), test.num_peds_in_seq))
+    requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
+                "(b)": whole,
+                "(c)": (_walkers(150, seed=13), np.zeros(150, np.int64))}
+    predictor, n = _serve(name, cfgs[name], splits, requests, loose=((name, "(c)"),))
+    reconstruct_launches += n
+    walls = {
+        f"test_{name}": (_host_times(
+            lambda: tr.test(eval_ped_batch=EVAL_PED_BATCH), card,
+            f"{name} test() ({n_peds} peds in {n_batches} packed batches of {p_eval} slots)",
+            n_peds), lambda: tr.test(eval_ped_batch=EVAL_PED_BATCH)),
+        f"predict_{name}": (_host_times(
+            lambda: predictor.predict(*whole), card,
+            f"{name} predict() request (b) ({n_peds} peds in {N_SCENES}x{BUCKET} slots)",
+            n_peds), lambda: predictor.predict(*whole))}
+    if profile_dir is not None:
+        for label, (wall_s, fn) in walls.items():
+            _profile(label, fn, card, wall_s, profile_dir)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # --- 3. ET-PECNet training ---
+        cfg = cfgs[name].replace(checkpoint_dir=ckpt_dir)
+        tr = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        p_max = TRAIN_BATCH - 1 + COLLATED_MAX_PEDS
+        if cfg.batch_size != TRAIN_BATCH or tr.p_max != p_max:
+            raise AssertionError(f"{name}: the training cell packs {TRAIN_BATCH} peds into "
+                                 f"{p_max} slots, not {cfg.batch_size} into {tr.p_max}")
+        init = _check_descriptor(name, card, tr, ETTorchTrainer(cfg, tag="smoke-cpu",
+                                                                datasets=splits, device="cpu"))
+        first = next(iter(tr.train_batches(0)))
+        _check_one_step(name, tr, first, "first packed batch")
+        with _synced_steps():
+            tr.fit(num_epochs=COLLATED_EPOCHS)
+        log = tr.log
+        if len(log["train_loss"]) != COLLATED_EPOCHS or \
+                not all(math.isfinite(v) for v in log["train_loss"] + log["val_loss"]):
+            raise AssertionError(f"{name}: losses {log}")
+        if not os.path.exists(os.path.join(tr.checkpoint_dir, "model_best.msgpack")):
+            raise AssertionError(f"{name}: fit() wrote no model_best.msgpack")
+        batches = [list(tr.train_batches(e)) for e in range(COLLATED_EPOCHS)]
+        per_epoch = [sum(int(b.ped_valid.sum()) for b in bs) for bs in batches]
+        steps = tr.step_timer.durations[len(batches[0]):]        # the second epoch
+        epochs = tr.epoch_timer.durations
+        print(f"[{card}] {name} fit({COLLATED_EPOCHS}) packing {cfg.batch_size} peds into "
+              f"{tr.p_max} slots, {train.num_scenes} train scenes ({per_epoch} trajectories "
+              f"in the epochs' packed batches, the short last one dropped): train loss "
+              f"{log['train_loss']}, val loss {log['val_loss']}; train step median "
+              f"{_median(steps) * 1e3:.3f} ms, min {min(steps) * 1e3:.3f} ms, max "
+              f"{max(steps) * 1e3:.3f} ms over the {len(steps)} steps of epoch 2 (host clock, "
+              f"a synchronize at each end); epoch (train + valid) seconds "
+              f"{[round(e, 4) for e in epochs]}; {per_epoch[-1] / epochs[-1]:.1f} trained "
+              f"trajectories/s in epoch 2; init_descriptor() {init['total_s']:.3f} s",
+              flush=True)
+        if profile_dir is not None:
+            _profile_train(card, name, tr, COLLATED_EPOCHS, profile_dir)
+        tr.load_model()
+        res, n = _packed_test(name, tr, recon, p_eval, n_batches)
+        recon_metrics_launches += n
+        fresh = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        fresh.load_model()
+        res_fresh = fresh.test(eval_ped_batch=EVAL_PED_BATCH)
+        if res_fresh != res:
+            raise AssertionError(f"{name}: a fresh trainer's test() {res_fresh} vs {res}")
+        print(f"{name} test() after fit() and load_model(): {res}, fused_recon_metrics "
+              f"launches={n}; a fresh trainer that loads model_best.msgpack gives the same "
+              f"means exactly", flush=True)
+
+        # --- 4. ET-LB-EBM from random weights: one epoch, test(), predict() ---
+        name = "lbebm"
+        cfg = cfgs[name].replace(checkpoint_dir=ckpt_dir)
+        tr = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+        tr.init_descriptor()
+        with _synced_steps():
+            tr.fit(num_epochs=1)
+        if not all(math.isfinite(v) for v in tr.log["train_loss"] + tr.log["val_loss"]):
+            raise AssertionError(f"{name}: non-finite losses {tr.log}")
+        tr.load_model()
+        res, n = _packed_test(name, tr, recon, p_eval, n_batches)
+        recon_metrics_launches += n
+        recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+        futures = ETPredictor(tr).predict(*whole)
+        torch.cuda.synchronize()
+        n = recon.RECONSTRUCT_LAUNCHES
+        if n != 1 or futures.shape != (S, n_peds, T, 2) or not np.isfinite(futures).all():
+            raise AssertionError(f"{name} predict() (b): {n} launches, {futures.shape}")
+        reconstruct_launches += n
+        steps = tr.step_timer.durations
+        print(f"[{card}] {name} one epoch: train loss {tr.log['train_loss']}, val loss "
+              f"{tr.log['val_loss']}; train step median {_median(steps) * 1e3:.3f} ms over "
+              f"{len(steps)} steps (the first included), epoch {tr.epoch_timer.durations[0]:.3f} "
+              f"s; test() {res} with fused_recon_metrics launches={n_batches}; "
+              f"predict() (b) finite, fused_reconstruct launches={n}", flush=True)
+    return recon_metrics_launches, reconstruct_launches, err, rerr
 
 
 def main(argv):
@@ -1157,6 +1367,13 @@ def main(argv):
 
     # --- 7. the training path ---
     recon_metrics_launches += _train_phase(card, cfgs, data, recon, profile_dir)
+
+    # --- 8. the collated regime ---
+    n_metrics, n_reconstruct, err, rerr = _collated_phase(card, recon, profile_dir)
+    recon_metrics_launches += n_metrics
+    reconstruct_launches += n_reconstruct
+    errs.append(err)
+    rerrs.append(rerr)
 
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",

@@ -1,14 +1,21 @@
-"""Padded scene batches for the sequenced regime (host-side NumPy).
+"""Padded batches of both regimes (host-side NumPy).
 
-The sequenced half of `eigentrajectory_tpu/data/batching.py`: ragged scenes
-become fixed-shape (B, N_max, T, 2) blocks with (B, N_max) pedestrian
-validity and (B,) scene validity. The arrays are bitwise equal to the JAX
-package's; the trainer moves them to the device.
+The counterpart of `eigentrajectory_tpu/data/batching.py`:
+
+* sequenced: ragged scenes become fixed-shape (B, N_max, T, 2) blocks with
+  (B, N_max) pedestrian validity and (B,) scene validity;
+* collated: whole scenes are packed greedily into flat (P, T, 2) batches of
+  about `batch_size` pedestrians, with (P,) validity and the scene id of
+  each slot (-1 on padding), from which the block-diagonal scene mask is
+  built on the device.
+
+The arrays are bitwise equal to the JAX package's; the trainer moves them to
+the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +31,17 @@ class SceneBatch:
     ped_valid: np.ndarray    # (B, N) bool
     scene_valid: np.ndarray  # (B,) bool
     non_linear: np.ndarray   # (B, N) float32
+
+
+@dataclasses.dataclass
+class CollatedBatch:
+    """Padded flat pedestrian batch (collated regime)."""
+
+    obs: np.ndarray         # (P, obs_len, 2) float32
+    pred: np.ndarray        # (P, pred_len, 2) float32
+    ped_valid: np.ndarray   # (P,) bool
+    scene_ids: np.ndarray   # (P,) int32; padded slots get -1
+    non_linear: np.ndarray  # (P,) float32
 
 
 def pad_scenes(
@@ -87,3 +105,103 @@ class SceneBatcher:
             if len(chunk) < bs and self.drop_last:
                 return
             yield pad_scenes(self.data, chunk.tolist(), self.n_max, bs)
+
+
+def _collate_groups(
+    data: TrajectoryData, order: np.ndarray, batch_size: int, drop_last: bool
+) -> List[List[int]]:
+    """Greedy pedestrian-count packing: scenes are added in `order` until the
+    batch holds at least `batch_size` pedestrians."""
+    groups: List[List[int]] = []
+    batch: List[int] = []
+    total = 0
+    for idx in order:
+        batch.append(int(idx))
+        total += int(data.num_peds_in_seq[idx])
+        if total >= batch_size:
+            groups.append(batch)
+            batch, total = [], 0
+    if batch and not drop_last:
+        groups.append(batch)
+    return groups
+
+
+def max_collated_peds(data: TrajectoryData, batch_size: int) -> int:
+    """Upper bound on the pedestrians of a packed batch: the packer stops as
+    soon as the total reaches `batch_size`, so a batch holds at most
+    batch_size - 1 pedestrians plus one last scene."""
+    return batch_size - 1 + data.max_peds_per_scene
+
+
+class CollatedBatcher:
+    """Iterates padded flat pedestrian batches (collated regime); every batch
+    has p_max slots."""
+
+    def __init__(
+        self,
+        data: TrajectoryData,
+        batch_size: int,
+        shuffle: bool,
+        p_max: Optional[int] = None,
+        drop_last: bool = False,
+        seed: int = 0,
+    ):
+        self.data = data
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.p_max = p_max or max_collated_peds(data, batch_size)
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        """Batches of an unshuffled pass (a shuffled one may differ by one)."""
+        order = np.arange(self.data.num_scenes)
+        return len(_collate_groups(self.data, order, self.batch_size, self.drop_last))
+
+    def __iter__(self) -> Iterator[CollatedBatch]:
+        order = np.arange(self.data.num_scenes)
+        if self.shuffle:
+            self._rng.shuffle(order)
+        obs_len = self.data.obs_traj.shape[1]
+        pred_len = self.data.pred_traj.shape[1]
+        for group in _collate_groups(self.data, order, self.batch_size, self.drop_last):
+            obs = np.zeros((self.p_max, obs_len, 2), np.float32)
+            pred = np.zeros((self.p_max, pred_len, 2), np.float32)
+            valid = np.zeros((self.p_max,), bool)
+            scene_ids = np.full((self.p_max,), -1, np.int32)
+            non_linear = np.zeros((self.p_max,), np.float32)
+            pos = 0
+            for sid, idx in enumerate(group):
+                s, e = self.data.seq_start_end[idx]
+                n = e - s
+                obs[pos:pos + n] = self.data.obs_traj[s:e]
+                pred[pos:pos + n] = self.data.pred_traj[s:e]
+                valid[pos:pos + n] = True
+                scene_ids[pos:pos + n] = sid
+                non_linear[pos:pos + n] = self.data.non_linear_ped[s:e]
+                pos += n
+            yield CollatedBatch(obs, pred, valid, scene_ids, non_linear)
+
+
+def scene_gather(scene_ids: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """Maps between a packed batch's flat slots and per-scene blocks, as the
+    JAX trainer's packed eval builds them.
+
+    scene_ids (P,) -> gather (G, m) int64, the slots of each of the G scenes
+    (in order of first appearance, m = the largest scene, 0 on padding),
+    gmask (G, m) bool, and inv_g, inv_i (P,) int64, each slot's scene and
+    place in it (0 for the padded slots, whose results are dropped).
+    """
+    uniq = [s for s in dict.fromkeys(scene_ids.tolist()) if s >= 0]
+    groups = [np.flatnonzero(scene_ids == s) for s in uniq]
+    m = max((len(idx) for idx in groups), default=1)
+    gather = np.zeros((max(len(groups), 1), m), np.int64)
+    gmask = np.zeros(gather.shape, bool)
+    inv_g = np.zeros(scene_ids.shape, np.int64)
+    inv_i = np.zeros(scene_ids.shape, np.int64)
+    for g, idx in enumerate(groups):
+        gather[g, :len(idx)] = idx
+        gmask[g, :len(idx)] = True
+        inv_g[idx] = g
+        inv_i[idx] = np.arange(len(idx))
+    return gather, gmask, inv_g, inv_i

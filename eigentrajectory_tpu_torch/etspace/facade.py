@@ -96,7 +96,9 @@ def et_forward(
       obs_traj: (B, N, t_obs, 2) padded scenes.
       ped_valid: (B, N) bool validity of each ped slot.
       pred_traj: optional (B, N, t_pred, 2) GT for the training loss branch.
-      aux: extra inputs forwarded to predictor_fn.
+      aux: extra inputs forwarded to predictor_fn; its key
+        `center_scene_ids` (B, N) is taken out and centres the origins per
+        scene instead of per row.
       return_coefficients: return the refined coefficients and the
         normalization params instead of trajectories, for a fused
         reconstruction by the caller.
@@ -117,11 +119,21 @@ def et_forward(
     c_obs_s = project(normalize(obs_traj, p, sca=False), et.basis_s.U_obs)
     c_obs = torch.where(mask[:, None, :], c_obs_m, c_obs_s).detach()  # (B, k, N)
 
-    # --- absolute coordinate, centred on the valid peds of each scene ---
+    # --- absolute coordinate, centred on the valid peds of each row, or
+    # with `center_scene_ids` (B, N) on the valid peds of each ped's scene
+    # (a segment mean: a packed row of many scenes gives each the numbers
+    # it gets alone) ---
     obs_ori = p.ori[..., 0, :].transpose(1, 2)              # (B, 2, N)
     valid_f = ped_valid.to(obs_ori.dtype)[:, None, :]       # (B, 1, N)
     denom = torch.clamp_min(valid_f.sum(dim=2, keepdim=True), 1.0)
-    center = (obs_ori * valid_f).sum(dim=2, keepdim=True) / denom
+    center_sid = aux.pop("center_scene_ids", None)
+    if center_sid is None:
+        center = (obs_ori * valid_f).sum(dim=2, keepdim=True) / denom
+    else:
+        same = (center_sid[:, :, None] == center_sid[:, None, :]).to(obs_ori.dtype) * valid_f
+        cnt = torch.clamp_min(same.sum(dim=2), 1.0)          # (B, N)
+        center = torch.bmm(same, (obs_ori * valid_f).transpose(1, 2))   # (B, N, 2)
+        center = (center / cnt[..., None]).transpose(1, 2)   # (B, 2, N)
     obs_ori = (obs_ori - center) * valid_f
 
     # --- prediction via the bridged predictor; it must see exactly the

@@ -3,8 +3,8 @@
 The counterpart of `eigentrajectory_tpu/inference.py` on one device (the
 JAX package's `mesh` argument is not ported). Each request is padded into a
 block of scenes, one scene per row and `n_slots` slots a row (the largest
-scene rounded up to a multiple of `bucket`); the block goes through the ET
-facade; the requested pedestrians' coefficients are gathered from the block,
+scene rounded up to a multiple of `bucket`), for the sequenced and the
+collated predictors alike; the block goes through the ET facade; the requested pedestrians' coefficients are gathered from the block,
 and the reconstruction tail, `ops.recon.fused_reconstruct` (the CUDA kernel
 on the card, its plain version on the CPU), runs on those alone.
 
@@ -73,8 +73,11 @@ class ETPredictor:
             valid_t = torch.from_numpy(valid.reshape(b, n_slots)).to(tr.device)
             flat_t = torch.from_numpy(flat).to(tr.device)
         with record_function("serve.et_forward"):
+            # One scene a row: a collated predictor's scene mask is all true
+            # within the row (and cut to the valid slots by its pre-hook).
+            aux = tr.make_aux(torch.zeros((b, n_slots), dtype=torch.int64, device=tr.device))
             coef = et_forward(tr.et, tr._predictor_fn, obs_t, valid_t, cfg.static_dist,
-                              return_coefficients=True)
+                              aux=aux, return_coefficients=True)
         # Only the requested rows are reconstructed, in request order: the
         # padded slots' coefficients stay behind.
         c_m, c_s, u_m, u_s, ori, rot, sca, mask = tr.recon_args(coef)

@@ -7,7 +7,7 @@ with one scene per batch row and a (B, W) pedestrian validity mask.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -88,6 +88,37 @@ class MaskedBatchNorm2d(nn.Module):
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * inv * self.weight[None, :, None, None] + \
             self.bias[None, :, None, None]
+
+
+class TorchMLP(nn.Module):
+    """PECNet / LB-EBM style MLP: `nn.Linear` layers `layer_0`, `layer_1`,
+    ... (the JAX module's names), ReLU between them, an optional sigmoid at
+    the end (`discrim`), and dropout after each hidden ReLU unless `dropout`
+    is -1 (rate min(0.1, dropout / 3) after the second layer, `dropout`
+    elsewhere; active in train mode only)."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], out_features: int,
+                 discrim: bool = False, dropout: float = -1.0):
+        super().__init__()
+        dims = [in_features, *hidden, out_features]
+        self.n_layers = len(dims) - 1
+        for i in range(self.n_layers):
+            self.add_module(f"layer_{i}", nn.Linear(dims[i], dims[i + 1]))
+        self.discrim = discrim
+        self.drops = nn.ModuleList(
+            nn.Dropout(min(0.1, dropout / 3) if i == 1 else dropout)
+            for i in range(self.n_layers - 1)) if dropout != -1 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer_{i}")(x)
+            if i != self.n_layers - 1:
+                x = torch.relu(x)
+                if self.drops is not None:
+                    x = self.drops[i](x)
+            elif self.discrim:
+                x = torch.sigmoid(x)
+        return x
 
 
 def zero_invalid(x: torch.Tensor, valid: torch.Tensor, axis: int) -> torch.Tensor:

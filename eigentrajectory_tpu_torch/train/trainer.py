@@ -1,21 +1,32 @@
-"""Training and evaluation engine for the sequenced regime.
+"""Training and evaluation engine for both batching regimes.
 
-The counterpart of `eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer`) for
-the sequenced predictors. Padded blocks of scenes go through the ET facade
-with the scene axis written out.
+The counterpart of `eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer`).
 
-Training: the step loss is the sum over the block's scenes of the three
-per-scene losses (non-finite ones zeroed, padding scenes weighted 0) divided
-by `cfg.batch_size`; its gradient goes through the JAX trainer's optimizer
-chain in the same order: NaN entries zeroed, global-norm clip as optax writes
-it, AdamW with decoupled decay, the learning rate keyed on the epoch.
-`cfg.micro_batches` > 1 accumulates the gradient over chunks of the block;
-the result equals the whole-block step, the masked-BN statistics included.
+* sequenced (ET-STGCNN, ET-SGCN): padded blocks of scenes go through the ET
+  facade with the scene axis written out. The step loss is the sum over the
+  block's scenes of the three per-scene losses (non-finite ones zeroed,
+  padding scenes weighted 0) divided by `cfg.batch_size`; the epoch loss is
+  the sum of the step losses over the number of scenes.
+  `cfg.micro_batches` > 1 accumulates the gradient over chunks of the block;
+  the result equals the whole-block step, the masked-BN statistics included.
+* collated (ET-PECNet, ET-LB-EBM): whole scenes are packed into flat batches
+  of about `cfg.batch_size` pedestrians, padded to `p_max` slots, and go
+  through the facade as one row (B = 1) with a block-diagonal scene mask.
+  The step loss is one masked mean over the valid pedestrians of the packed
+  batch (non-finite -> 0), with no division by the batch size; the epoch
+  loss is the sum of the step losses over the number of batches. Training
+  and validation centre the origins over the whole packed batch, as the
+  reference's collated training does; `test()` centres them per scene.
+
+Every step's gradient goes through the JAX trainer's optimizer chain in the
+same order: NaN entries zeroed, global-norm clip as optax writes it, AdamW
+with decoupled decay, the learning rate keyed on the epoch.
 
 Evaluation: the coefficients are flattened to one pedestrian axis and
 reconstructed, denormalized and scored by the fused kernel of `ops/recon.py`
-(the CUDA kernel on the card, its plain version on the CPU); COL is computed
-per scene.
+(the CUDA kernel on the card, its plain version on the CPU), once a block or
+packed batch; COL is computed per scene (a packed batch's scenes are
+gathered into (G, m) blocks first).
 
 `save_model` writes `model_best.msgpack` in the JAX package's format, so
 either package loads it. The resume state (`resume.pt`) is the port's own:
@@ -35,7 +46,7 @@ from torch.profiler import record_function
 
 from .. import metrics as M
 from ..config import ExpConfig, resolve_dataset_dir
-from ..data.batching import SceneBatcher
+from ..data.batching import CollatedBatcher, SceneBatcher, max_collated_peds, scene_gather
 from ..data.dataset import augment_trajectory, load_trajectory_data
 from ..etspace.descriptor import ETBasis
 from ..etspace.facade import ETParams, calculate_parameters, et_forward
@@ -65,9 +76,7 @@ class ETTorchTrainer:
         self.device = torch.device(device)
         self.dtype = dtype
         self.baseline = get_baseline(cfg.baseline)
-        if self.baseline.BATCHING != "sequenced":
-            raise NotImplementedError(
-                f"the {self.baseline.BATCHING} regime is not ported yet")
+        self.collated = self.baseline.BATCHING == "collated"
         self.dataset_dir = resolve_dataset_dir(cfg.dataset_dir, cfg.dataset)
         self.checkpoint_dir = os.path.join(cfg.checkpoint_dir, tag, cfg.dataset)
 
@@ -84,6 +93,10 @@ class ETTorchTrainer:
             self.data_val.max_peds_per_scene,
             self.data_test.max_peds_per_scene,
         )
+        if self.collated:
+            # Slots of a packed train or val batch.
+            self.p_max = max(max_collated_peds(self.data_train, cfg.batch_size),
+                             max_collated_peds(self.data_val, cfg.batch_size), self.n_max)
         self.log: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
         # Optional per-step wall-clock meter (set by fit()); it measures the
         # enqueue of a step, not its device time: train() does not wait for
@@ -115,12 +128,32 @@ class ETTorchTrainer:
         return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
 
     def _to_device(self, batch):
-        """(obs, pred, ped_valid, scene_valid) of a SceneBatch on the device."""
+        """(obs, pred, ped_valid, scene_valid) of a SceneBatch on the device,
+        or (obs, pred, ped_valid, scene_ids) of a CollatedBatch as one row
+        (a leading axis of 1)."""
+        if self.collated:
+            obs, pred = (torch.from_numpy(x[None]).to(self.device, self.dtype)
+                         for x in (batch.obs, batch.pred))
+            valid, ids = (torch.from_numpy(x[None]).to(self.device)
+                          for x in (batch.ped_valid, batch.scene_ids))
+            return obs, pred, valid, ids
         obs, pred = (torch.from_numpy(x).to(self.device, self.dtype)
                      for x in (batch.obs, batch.pred))
         valid, scene_valid = (torch.from_numpy(x).to(self.device)
                               for x in (batch.ped_valid, batch.scene_valid))
         return obs, pred, valid, scene_valid
+
+    def make_aux(self, scene_ids: torch.Tensor) -> Dict:
+        """The predictor's extra inputs: the number of samples, and for the
+        collated predictors the scene mask (B, N, N) of a block whose slots
+        carry the scene ids `scene_ids` (B, N), true where both slots hold
+        the same scene and are not padding (-1). The sequenced predictors
+        take no mask, and `scene_ids` is not read for them."""
+        aux = {"num_samples": self.cfg.num_samples}
+        if self.collated:
+            aux["scene_mask"] = ((scene_ids[:, :, None] == scene_ids[:, None, :])
+                                 & (scene_ids[:, :, None] >= 0))
+        return aux
 
     # ----------------------------------------------------------- descriptor
     def init_descriptor(self):
@@ -140,39 +173,49 @@ class ETTorchTrainer:
             anchor_m=to(et.anchor_m), anchor_s=to(et.anchor_s))
 
     # ---------------------------------------------------------- train steps
-    def _chunk_loss(self, obs, pred, valid, scene_valid) -> torch.Tensor:
-        """The share of the step loss of one chunk of scenes: per-scene
-        losses, non-finite ones zeroed, padding scenes weighted 0, summed and
-        divided by the FULL cfg.batch_size, so that the chunks' gradients add
-        up to the whole block's."""
+    def _chunk_loss(self, obs, pred, valid, scene_info) -> torch.Tensor:
+        """The share of the step loss of one chunk.
+
+        Sequenced (`scene_info` = scene validity (B,)): per-scene losses,
+        non-finite ones zeroed, padding scenes weighted 0, summed and divided
+        by the FULL cfg.batch_size, so that the chunks' gradients add up to
+        the whole block's. Collated (`scene_info` = scene ids (1, P)): the
+        losses of the one packed row, a masked mean over its valid
+        pedestrians, non-finite -> 0.
+        """
         out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
-                         pred_traj=pred)
+                         pred_traj=pred, aux=self.make_aux(scene_info))
         losses = (out["loss_eigentraj"] + out["loss_euclidean_ade"]
                   + out["loss_euclidean_fde"])                               # (B,)
         losses = torch.nan_to_num(losses, nan=0.0, posinf=0.0, neginf=0.0)
-        return (losses * scene_valid.to(losses.dtype)).sum() / self.cfg.batch_size
+        if self.collated:
+            return losses.sum()
+        return (losses * scene_info.to(losses.dtype)).sum() / self.cfg.batch_size
 
-    def _chunk_backward(self, obs, pred, valid, scene_valid) -> torch.Tensor:
+    def _chunk_backward(self, obs, pred, valid, scene_info) -> torch.Tensor:
         """Add one chunk's gradient to `.grad`; returns its share of the loss."""
         with record_function("train.forward"):
-            loss = self._chunk_loss(obs, pred, valid, scene_valid)
+            loss = self._chunk_loss(obs, pred, valid, scene_info)
         with record_function("train.backward"):
             loss.backward()
         return loss.detach()
 
-    def loss_and_grads(self, obs, pred, valid, scene_valid) -> torch.Tensor:
-        """Step loss of one block (a 0-dim tensor on the device) with its
-        gradient left in the parameters' `.grad` and the BN statistics moved
-        once. The model must be in train mode.
+    def loss_and_grads(self, obs, pred, valid, scene_info) -> torch.Tensor:
+        """Step loss of one block or packed batch, as `_to_device` gives it
+        (a 0-dim tensor on the device), with its gradient left in the
+        parameters' `.grad` and the BN statistics moved once. The model must
+        be in train mode.
 
-        With `cfg.micro_batches` > 1 the block goes through in chunks. Every
-        chunk starts from the pre-step BN statistics, and the chunks' updated
-        statistics are averaged by their counts of valid scenes.
+        With `cfg.micro_batches` > 1 a sequenced block goes through in
+        chunks. Every chunk starts from the pre-step BN statistics, and the
+        chunks' updated statistics are averaged by their counts of valid
+        scenes. The collated regime ignores `micro_batches`, as the JAX
+        trainer does.
         """
         m = self.cfg.micro_batches
         self.optimizer.zero_grad(set_to_none=True)
-        if m <= 1:
-            return self._chunk_backward(obs, pred, valid, scene_valid)
+        if m <= 1 or self.collated:
+            return self._chunk_backward(obs, pred, valid, scene_info)
 
         if obs.shape[0] % m:
             raise ValueError("the block's scenes must be divisible by micro_batches")
@@ -180,7 +223,7 @@ class ETTorchTrainer:
         pre = [b.clone() for b in stats]
         acc = [torch.zeros_like(b) for b in stats]
         total = wsum = 0.0
-        for chunk in zip(*(x.chunk(m) for x in (obs, pred, valid, scene_valid))):
+        for chunk in zip(*(x.chunk(m) for x in (obs, pred, valid, scene_info))):
             for b, p in zip(stats, pre):
                 b.copy_(p)
             total = total + self._chunk_backward(*chunk)
@@ -207,10 +250,11 @@ class ETTorchTrainer:
             torch._foreach_mul_(grads, scale)
         self.optimizer.step()
 
-    def train_step(self, obs, pred, valid, scene_valid) -> torch.Tensor:
-        """One training step on a block on the device; returns the step loss
-        as a 0-dim tensor, without waiting for the device."""
-        loss = self.loss_and_grads(obs, pred, valid, scene_valid)
+    def train_step(self, obs, pred, valid, scene_info) -> torch.Tensor:
+        """One training step on a block or packed batch on the device;
+        returns the step loss as a 0-dim tensor, without waiting for the
+        device."""
+        loss = self.loss_and_grads(obs, pred, valid, scene_info)
         with record_function("train.optimizer"):
             self.apply_gradients()
         return loss
@@ -229,17 +273,27 @@ class ETTorchTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    def train_batches(self, epoch: int):
+        """The shuffled train batches of `epoch`: padded blocks of scenes, or
+        packed batches with the incomplete last one dropped."""
+        cfg = self.cfg
+        if self.collated:
+            return CollatedBatcher(self.data_train, cfg.batch_size, True, self.p_max,
+                                   drop_last=True, seed=cfg.seed + epoch)
+        return SceneBatcher(self.data_train, cfg.batch_size, True, self.n_max,
+                            seed=cfg.seed + epoch)
+
     def train(self, epoch: int) -> float:
         """One epoch over the shuffled train split; returns and logs the sum
-        of the step losses over the number of scenes. The losses stay on the
-        device and are read once, at the end, in step order."""
+        of the step losses over the number of scenes (sequenced) or of
+        batches (collated). The losses stay on the device and are read once,
+        at the end, in step order."""
         if self.et is None:
             raise RuntimeError("no ET parameters: call init_descriptor() first")
         self._set_lr(self._epoch_lr(epoch))
         self.model.train()
         losses = []
-        for batch in SceneBatcher(self.data_train, self.cfg.batch_size, True, self.n_max,
-                                  seed=self.cfg.seed + epoch):
+        for batch in self.train_batches(epoch):
             with record_function("train.to_device"):
                 args = self._to_device(batch)
             ctx = (self.step_timer.measure() if self.step_timer is not None
@@ -250,22 +304,28 @@ class ETTorchTrainer:
         total = 0.0
         for loss in torch.stack(losses).cpu().tolist():
             total += loss
-        avg = total / max(1, self.data_train.num_scenes)
+        avg = total / max(1, len(losses) if self.collated else self.data_train.num_scenes)
         self.log["train_loss"].append(avg)
         return avg
 
     @torch.no_grad()
     def valid(self, epoch: int) -> float:
-        """Validation loss: sum over the val scenes of (mean min-of-S FDE *
-        valid pedestrians) over the split's pedestrians, in eval mode."""
+        """Validation loss: sum over the val scenes (packed batches) of (mean
+        min-of-S FDE * valid pedestrians) over the split's pedestrians, in
+        eval mode."""
         self.model.eval()
         parts = []
-        for batch in SceneBatcher(self.data_val, self.cfg.batch_size, False, self.n_max):
-            obs, pred, valid, scene_valid = self._to_device(batch)
-            out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
-                             pred_traj=pred)
+        cfg = self.cfg
+        batches = (CollatedBatcher(self.data_val, cfg.batch_size, False, self.p_max)
+                   if self.collated else
+                   SceneBatcher(self.data_val, cfg.batch_size, False, self.n_max))
+        for batch in batches:
+            obs, pred, valid, scene_info = self._to_device(batch)
+            out = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
+                             pred_traj=pred, aux=self.make_aux(scene_info))
             n = valid.sum(dim=1).to(self.dtype)
-            parts.append((out["loss_euclidean_fde"] * n * scene_valid.to(self.dtype)).sum())
+            weight = n if self.collated else n * scene_info.to(self.dtype)
+            parts.append((out["loss_euclidean_fde"] * weight).sum())
         total = 0.0
         for part in torch.stack(parts).cpu().tolist():
             total += part
@@ -351,17 +411,67 @@ class ETTorchTrainer:
             cols = M.col(recon, valid)
         return ade.reshape(b, n), fde.reshape(b, n), tcc.reshape(b, n), cols
 
-    def test(self, eval_batch: int = 512) -> Dict[str, float]:
-        """Mean min-of-S ADE/FDE/TCC/COL over the valid peds of the test split,
-        `eval_batch` padded scenes at a time."""
+    @torch.no_grad()
+    def packed_eval_step(self, obs: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
+                         scene_ids: torch.Tensor, gather: torch.Tensor, gmask: torch.Tensor,
+                         inv_g: torch.Tensor, inv_i: torch.Tensor):
+        """Per-ped metrics of one packed batch (collated regime).
+
+        obs (1, P, obs_len, 2), pred (1, P, pred_len, 2), valid and scene_ids
+        (1, P), as `_to_device` gives them, and the scene maps of
+        `data.batching.scene_gather` (gather, gmask (G, m); inv_g, inv_i
+        (P,)), all on the trainer's device -> (ade, fde, tcc, col), each (P,).
+
+        The reference evaluates one scene a forward, so the origins are
+        centred per scene here (`center_scene_ids`), and an attention
+        predictor is told to keep to each scene (`isolate_scenes`). COL runs
+        on the (G, m) blocks of the batch's scenes, not on the flat (P, P)
+        pairs, and is scattered back to the slots.
+        """
+        cfg = self.cfg
+        p = valid.shape[1]
+        aux = self.make_aux(scene_ids)
+        aux["center_scene_ids"] = scene_ids
+        aux["isolate_scenes"] = True
+        with record_function("eval.et_forward"):
+            coef = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
+                              aux=aux, return_coefficients=True)
+        args = (*self.recon_args(coef), pred.reshape(p, cfg.pred_len, 2).contiguous())
+        with record_function("eval.recon_metrics"):
+            recon, ade, fde, tcc = fused_recon_metrics(*args)          # recon (S, P, T, 2)
+        with record_function("eval.col_gather"):
+            recon_g = recon[:, gather].transpose(0, 1)                  # (G, S, m, T, 2)
+        with record_function("eval.col"):
+            col = M.col(recon_g, gmask)[inv_g, inv_i]
+        return ade, fde, tcc, col
+
+    def _test_batches(self, eval_batch: int, eval_ped_batch: Optional[int]):
+        if not self.collated:
+            return SceneBatcher(self.data_test, eval_batch, False, self.n_max)
+        if eval_ped_batch is None:
+            # Attention over every token grows with P^2; such a predictor
+            # caps its packed size.
+            eval_ped_batch = getattr(self.baseline, "EVAL_PED_CAP", 2048)
+        return CollatedBatcher(self.data_test, eval_ped_batch, False,
+                               max_collated_peds(self.data_test, eval_ped_batch))
+
+    def test(self, eval_batch: int = 512,
+             eval_ped_batch: Optional[int] = None) -> Dict[str, float]:
+        """Mean min-of-S ADE/FDE/TCC/COL over the valid peds of the test split:
+        `eval_batch` padded scenes at a time (sequenced), or whole scenes
+        packed greedily to `eval_ped_batch` pedestrians (collated; by default
+        the predictor's `EVAL_PED_CAP`, else 2048)."""
         if self.et is None:
             raise RuntimeError("no ET parameters: call load_model() or init_descriptor() first")
         self.model.eval()
         meters = {k: M.AverageMeter() for k in ("ADE", "FDE", "TCC", "COL")}
-        for batch in SceneBatcher(self.data_test, eval_batch, False, self.n_max):
+        for batch in self._test_batches(eval_batch, eval_ped_batch):
             with record_function("eval.to_device"):
-                obs, pred, valid, _ = self._to_device(batch)
-            metrics = self.eval_step(obs, pred, valid)
+                args = self._to_device(batch)
+                if self.collated:
+                    args = (*args, *(torch.from_numpy(x).to(self.device)
+                                     for x in scene_gather(batch.scene_ids)))
+            metrics = self.packed_eval_step(*args) if self.collated else self.eval_step(*args[:3])
             with record_function("eval.to_host"):
                 res = torch.stack(metrics).cpu().numpy()
             for j, name in enumerate(("ADE", "FDE", "TCC", "COL")):
