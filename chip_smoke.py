@@ -86,13 +86,30 @@ CUDA toolkit. It
    ET-LB-EBM (lbebm-univ, random weights): `init_descriptor()`, one epoch,
    `test()` and `predict()` (b), each launching its kernel, with finite
    results;
-9. prints a JSON line with both kernels' numbers, then as its last line
+9. drives ET-AgentFormer (agentformer-zara2 configuration, committed zara2
+   checkpoint; model width 256, 8 heads, 2 + 2 layers) on the splits of
+   step 8: `test()` at the model's packed cap of 128 pedestrians (26 batches
+   of P = 147 slots, 1,176 encoder tokens), which must launch
+   `fused_recon_metrics` once a batch at N = P, card vs CPU within 1e-4 on
+   every mean; `predict()` (a), (b), (c) at 32 slots a scene, each card vs
+   the CPU's float32 (within 1e-4) and float64 runs, with the peak device
+   memory of (b); host-clock medians of that test() and predict() (b);
+   training packing 128 pedestrians into 147 slots: `init_descriptor()` card
+   vs CPU, one step's loss and gradients with dropout off card vs CPU f32 vs
+   f64, `fit(2)` with dropout (the trainer's own stream), `fit(1)` +
+   `resume.pt` + `fit(2)` equal to the straight run within 1e-6 relative
+   with the dropout generator in the same state, `load_model()` + `test()`
+   (a fresh trainer gives the same means exactly); then the reference
+   import: ET-SGCN's `model_best.pth` from
+   `benchmarks/ref_resume/sgcn-zara1.pt` through
+   `interop.import_checkpoint_to_trainer`, its `test()` card vs CPU;
+10. prints a JSON line with both kernels' numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
-(ET-PECNet's included, with the span `eval.col_gather` of the packed eval's
-scene gather) and one training epoch of ET-STGCNN and of ET-PECNet with
-torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
+(ET-PECNet's and ET-AgentFormer's included, with the span `eval.col_gather`
+of the packed eval's scene gather) and one training epoch of ET-STGCNN,
+ET-PECNet and ET-AgentFormer with torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
 device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2, then
 builds the sources of the same names in OLD_CSRC_DIR (another version of the
 kernels, with the same C interface), times both versions of each kernel in
@@ -138,6 +155,11 @@ TRAIN_SCENES, TRAIN_BATCH, TRAIN_EPOCHS = 1301, 128, 3
 COLLATED_MODELS = (("pecnet", "eigentrajectory-pecnet-univ.json"),
                    ("lbebm", "eigentrajectory-lbebm-univ.json"))
 COLLATED_MAX_PEDS, EVAL_PED_BATCH, COLLATED_EPOCHS = 20, 2048, 2
+# ET-AgentFormer (zara2 checkpoint) on the collated splits: test() packs to the
+# model's cap of 128 pedestrians (P = 147 slots); predict() pads each scene to
+# AF_BUCKET slots, since every token of a row attends to every other (at 128
+# slots one f32 score tensor of request (b) would take 10 GB).
+AGENTFORMER_CFG, AF_BUCKET, AF_EPOCHS = "eigentrajectory-agentformer-zara2.json", 32, 2
 # Each kernel's span in the trainer and the predictor, and a part of its
 # name in the profiler's trace.
 KERNEL_SPANS = {"eval.recon_metrics": "recon_metrics_kernel",
@@ -621,20 +643,22 @@ def _check_request(name, label, card_p, cpu_p, ref_p, obs, ids, strict):
     return got, launches
 
 
-def _serve(name, cfg, splits, requests, loose=(("stgcnn", "(c)"),)):
-    """The serving checks of one model; returns (card predictor, launches).
-    The requests (name, label) in `loose` are held to the float64 run alone."""
+def _serve(name, cfg, splits, requests, loose=(("stgcnn", "(c)"),), bucket=BUCKET):
+    """The serving checks of one model at `bucket` slots a scene; returns
+    (card predictor, launches). The requests (name, label) in `loose` are
+    held to the float64 run alone."""
     import numpy as np
     import torch
     from eigentrajectory_tpu_torch.inference import ETPredictor
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
-    card_p = ETPredictor.from_checkpoint(cfg, "parity", datasets=splits)
-    cpu_p = ETPredictor.from_checkpoint(cfg, "parity", datasets=splits, device="cpu")
+    card_p = ETPredictor.from_checkpoint(cfg, "parity", bucket=bucket, datasets=splits)
+    cpu_p = ETPredictor.from_checkpoint(cfg, "parity", bucket=bucket, datasets=splits,
+                                        device="cpu")
     ref_tr = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu",
                             dtype=torch.float64)
     ref_tr.load_model()
-    ref_p = ETPredictor(ref_tr)
+    ref_p = ETPredictor(ref_tr, bucket=bucket)
     launches = 0
     for label, (obs, ids) in requests.items():
         # ET-STGCNN's inverse-distance adjacency is ill-conditioned on the
@@ -767,17 +791,19 @@ def _copy_trainer(tr, device, dtype):
     return other
 
 
-def _check_one_step(name, tr, batch, label):
+def _check_one_step(name, tr, batch, label, train_mode=True):
     """One step's loss, gradients and BN statistics from the same weights on
     the card, on the CPU in float32 and on the CPU in float64. The weights do
-    not move (no optimizer update) and the card's BN statistics are put back."""
+    not move (no optimizer update) and the card's BN statistics are put back.
+    `train_mode=False` takes the step in eval mode: dropout off, for a model
+    without BN (the three runs draw from three generators)."""
     import torch
 
     runs = {}
     stats_before = {k: v.clone() for k, v in tr.model.state_dict().items()}
     for key, trainer in (("card", tr), ("cpu32", _copy_trainer(tr, "cpu", torch.float32)),
                          ("cpu64", _copy_trainer(tr, "cpu", torch.float64))):
-        trainer.model.train()
+        trainer.model.train(train_mode)
         loss = trainer.loss_and_grads(*trainer._to_device(batch))
         trainer.model.eval()
         runs[key] = (float(loss),
@@ -1074,10 +1100,10 @@ def _train_phase(card, cfgs, test_data, recon, profile_dir):
     return launches
 
 
-def _packed_test(name, tr, recon, p_eval, n_batches):
-    """test() of a collated trainer on the card with the launch count reset
-    just before it; the kernel must run once a packed batch, at N = P.
-    Returns (means, launches)."""
+def _packed_test(name, tr, recon, p_eval, n_batches, eval_ped_batch=EVAL_PED_BATCH):
+    """test(eval_ped_batch) of a collated trainer on the card with the launch
+    count reset just before it; the kernel must run once a packed batch, at
+    N = P. Returns (means, launches)."""
     import torch
     from eigentrajectory_tpu_torch.train import trainer as trainer_module
 
@@ -1090,7 +1116,7 @@ def _packed_test(name, tr, recon, p_eval, n_batches):
     trainer_module.fused_recon_metrics = noting
     try:
         recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
-        res = tr.test(eval_ped_batch=EVAL_PED_BATCH)
+        res = tr.test(eval_ped_batch=eval_ped_batch)
         torch.cuda.synchronize()
         launches = recon.LAUNCHES
     finally:
@@ -1104,6 +1130,15 @@ def _packed_test(name, tr, recon, p_eval, n_batches):
     return res, launches
 
 
+def _collated_splits():
+    """(train, val, test) of scenes of 2-20 pedestrians: 1,301, 301 and 301
+    scenes."""
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+
+    return tuple(make_synthetic_data(n_scenes=n, max_peds=COLLATED_MAX_PEDS, seed=seed)
+                 for n, seed in ((TRAIN_SCENES, 1), (N_SCENES, 2), (N_SCENES, 0)))
+
+
 def _collated_phase(card, recon, profile_dir):
     """Step 8: the collated regime. Returns the launches of both kernels on
     its paths and the kernels' max abs errors at the collated shape."""
@@ -1111,14 +1146,11 @@ def _collated_phase(card, recon, profile_dir):
     import torch
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.batching import CollatedBatcher
-    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
     from eigentrajectory_tpu_torch.inference import ETPredictor
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
-    test = make_synthetic_data(n_scenes=N_SCENES, max_peds=COLLATED_MAX_PEDS, seed=0)
-    train = make_synthetic_data(n_scenes=TRAIN_SCENES, max_peds=COLLATED_MAX_PEDS, seed=1)
-    val = make_synthetic_data(n_scenes=N_SCENES, max_peds=COLLATED_MAX_PEDS, seed=2)
-    splits = (train, val, test)
+    splits = _collated_splits()
+    train, val, test = splits
     n_peds, train_peds = int(test.num_peds_in_seq.sum()), int(train.num_peds_in_seq.sum())
     p_eval = EVAL_PED_BATCH - 1 + test.max_peds_per_scene
     n_batches = len(CollatedBatcher(test, EVAL_PED_BATCH, False))
@@ -1248,6 +1280,165 @@ def _collated_phase(card, recon, profile_dir):
     return recon_metrics_launches, reconstruct_launches, err, rerr
 
 
+def _agentformer_phase(card, recon, seq_data, profile_dir):
+    """Step 9: ET-AgentFormer (zara2 configuration), then the reference
+    import. Returns the launches of both kernels on its paths and the
+    kernels' max abs errors at its packed shape."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data.batching import CollatedBatcher
+    from eigentrajectory_tpu_torch.interop import import_checkpoint_to_trainer
+    from eigentrajectory_tpu_torch.models import agentformer
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    splits = _collated_splits()
+    train, _, test = splits
+    n_peds = int(test.num_peds_in_seq.sum())
+    cap = agentformer.EVAL_PED_CAP
+    p_eval = cap - 1 + test.max_peds_per_scene
+    n_batches = len(CollatedBatcher(test, cap, False))
+    name = "agentformer"
+    cfg = load_config(os.path.join(REPO, "configs", AGENTFORMER_CFG), checkpoint_dir=CKPT_DIR)
+    recon_metrics_launches = reconstruct_launches = 0
+    err, rerr, _, _ = _check_pair(recon, _case(p_eval, seed=31), "agentformer packed shape")
+
+    # --- 1. test() from the zara2 checkpoint, packed to the cap, card vs CPU ---
+    tr = ETTorchTrainer(cfg, tag="parity", datasets=splits)
+    tr.load_model()
+    tr_cpu = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu")
+    tr_cpu.load_model()
+    res, n = _packed_test(name, tr, recon, p_eval, n_batches, eval_ped_batch=None)
+    recon_metrics_launches += n
+    res_cpu = tr_cpu.test()
+    tokens = (cfg.k + 2) * p_eval
+    print(f"{name} test() on the card: {res}, fused_recon_metrics launches={n} at N={p_eval} "
+          f"({n_batches} packed batches of at most {cap} peds, {tokens} encoder tokens a "
+          f"batch); on the CPU: {res_cpu}; max |card - CPU| "
+          f"{max(abs(res[k] - res_cpu[k]) for k in res):.3e}", flush=True)
+    for key, want in res_cpu.items():
+        if not abs(res[key] - want) <= ATOL + RTOL * abs(want):
+            raise AssertionError(f"{name} {key}: card {res[key]} vs CPU {want}")
+
+    # --- 2. predict() at AF_BUCKET slots a scene: (a), (b), (c) ---
+    whole = (test.obs_traj, np.repeat(np.arange(N_SCENES), test.num_peds_in_seq))
+    requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
+                "(b)": whole,
+                "(c)": (_walkers(150, seed=13), np.zeros(150, np.int64))}
+    predictor, n = _serve(name, cfg, splits, requests, loose=(), bucket=AF_BUCKET)
+    reconstruct_launches += n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    predictor.predict(*whole)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{card}] {name} predict() (b) at bucket={AF_BUCKET} ({N_SCENES} rows of "
+          f"{AF_BUCKET} slots, {(cfg.k + 2) * AF_BUCKET} encoder tokens a row): peak device "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated; {before / 2**30:.3f} GiB "
+          f"held before the call)", flush=True)
+    walls = {
+        f"test_{name}": (_host_times(
+            lambda: tr.test(), card,
+            f"{name} test() ({n_peds} peds in {n_batches} packed batches of {p_eval} slots)",
+            n_peds), lambda: tr.test()),
+        f"predict_{name}": (_host_times(
+            lambda: predictor.predict(*whole), card,
+            f"{name} predict() request (b) ({n_peds} peds in {N_SCENES}x{AF_BUCKET} slots)",
+            n_peds), lambda: predictor.predict(*whole))}
+    if profile_dir is not None:
+        for label, (wall_s, fn) in walls.items():
+            _profile(label, fn, card, wall_s, profile_dir)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # --- 3. training at TRAIN_BATCH pedestrians a packed batch ---
+        cfg_t = cfg.replace(checkpoint_dir=ckpt_dir)
+        straight = ETTorchTrainer(cfg_t, tag="smoke", datasets=splits)
+        p_max = TRAIN_BATCH - 1 + COLLATED_MAX_PEDS
+        if cfg_t.batch_size != TRAIN_BATCH or straight.p_max != p_max:
+            raise AssertionError(f"{name}: the training cell packs {TRAIN_BATCH} peds into "
+                                 f"{p_max} slots, not {cfg_t.batch_size} into {straight.p_max}")
+        init = _check_descriptor(name, card, straight, ETTorchTrainer(
+            cfg_t, tag="smoke-cpu", datasets=splits, device="cpu"))
+        first_batch = next(iter(straight.train_batches(0)))
+        _check_one_step(name, straight, first_batch, "first packed batch, dropout off",
+                        train_mode=False)
+        with _synced_steps():
+            straight.fit(num_epochs=AF_EPOCHS)
+        log = straight.log
+        if len(log["train_loss"]) != AF_EPOCHS or \
+                not all(math.isfinite(v) for v in log["train_loss"] + log["val_loss"]):
+            raise AssertionError(f"{name}: losses {log}")
+        n_steps = len(straight.train_batches(0))
+        steps = straight.step_timer.durations[n_steps:]          # the second epoch
+        epochs = straight.epoch_timer.durations
+        per_epoch = sum(int(b.ped_valid.sum()) for b in straight.train_batches(AF_EPOCHS - 1))
+        print(f"[{card}] {name} fit({AF_EPOCHS}) with dropout {agentformer.TF_DROPOUT}, packing "
+              f"{cfg_t.batch_size} peds into {straight.p_max} slots ({(cfg.k + 2) * p_max} "
+              f"encoder tokens), {train.num_scenes} train scenes, {n_steps} steps an epoch: "
+              f"train loss {log['train_loss']}, val loss {log['val_loss']}; train step median "
+              f"{_median(steps) * 1e3:.3f} ms, min {min(steps) * 1e3:.3f} ms, max "
+              f"{max(steps) * 1e3:.3f} ms over the {len(steps)} steps of epoch 2 (host clock, "
+              f"a synchronize at each end); epoch (train + valid) seconds "
+              f"{[round(e, 4) for e in epochs]}; {per_epoch / epochs[-1]:.1f} trained "
+              f"trajectories/s in epoch 2; init_descriptor() {init['total_s']:.3f} s",
+              flush=True)
+
+        # fit(1) + resume.pt + fit(AF_EPOCHS): the dropout stream goes on
+        first = ETTorchTrainer(cfg_t, tag="smoke-resume", datasets=splits)
+        first._set_et(straight.et)
+        first.fit(num_epochs=1, checkpoint_every=1, verbose=False)
+        resumed = ETTorchTrainer(cfg_t, tag="smoke-resume", datasets=splits)
+        resumed.fit(num_epochs=AF_EPOCHS, resume=True, verbose=False)
+        gaps = [abs(a - b) / abs(b) for a, b in zip(resumed.log["train_loss"], log["train_loss"])]
+        if len(resumed.epoch_timer.durations) != AF_EPOCHS - 1 or \
+                len(gaps) != AF_EPOCHS or max(gaps) > 1e-6:
+            raise AssertionError(f"{name}: fit(1) + resume gave {resumed.log} against the "
+                                 f"straight run's {log}")
+        if not torch.equal(resumed.dropout_generator.get_state(),
+                           straight.dropout_generator.get_state()):
+            raise AssertionError(f"{name}: the resumed dropout stream is not the straight one")
+        print(f"[{card}] {name} fit(1) + resume.pt + fit({AF_EPOCHS}) against fit({AF_EPOCHS}): "
+              f"train losses {resumed.log['train_loss']} vs {log['train_loss']}, relative gaps "
+              f"{[f'{g:.3e}' for g in gaps]} (<= 1e-6); the dropout generators end in the "
+              f"same state", flush=True)
+        if profile_dir is not None:
+            _profile_train(card, name, straight, AF_EPOCHS, profile_dir)
+
+        straight.load_model()
+        res, n = _packed_test(name, straight, recon, p_eval, n_batches, eval_ped_batch=None)
+        recon_metrics_launches += n
+        fresh = ETTorchTrainer(cfg_t, tag="smoke", datasets=splits)
+        fresh.load_model()
+        res_fresh = fresh.test()
+        if res_fresh != res:
+            raise AssertionError(f"{name}: a fresh trainer's test() {res_fresh} vs {res}")
+        print(f"{name} test() after fit() and load_model(): {res}, fused_recon_metrics "
+              f"launches={n}; a fresh trainer that loads model_best.msgpack gives the same "
+              f"means exactly", flush=True)
+
+        # --- 4. the reference import: ET-SGCN's model_best.pth, card vs CPU ---
+        snapshot = os.path.join(REPO, "benchmarks", "ref_resume", "sgcn-zara1.pt")
+        # The snapshot (a file of this repository) also holds numpy RNG
+        # states, which the restricted unpickler refuses; the state dict in
+        # it is read by the import itself, restricted.
+        blob = torch.load(snapshot, map_location="cpu", weights_only=False)["best_model"]
+        pth = os.path.join(ckpt_dir, "model_best.pth")
+        with open(pth, "wb") as f:
+            f.write(blob)
+        sgcn_cfg = load_config(os.path.join(REPO, "configs", "eigentrajectory-sgcn-zara1.json"),
+                               checkpoint_dir=ckpt_dir, n_max_peds=N_MAX)
+        seq_splits = (seq_data,) * 3
+        imported = import_checkpoint_to_trainer(sgcn_cfg, pth, "imported", datasets=seq_splits)
+        imported_cpu = ETTorchTrainer(sgcn_cfg, tag="imported", datasets=seq_splits,
+                                      device="cpu")
+        imported_cpu.load_model()
+        _, n = _check_test("sgcn imported from the reference's model_best.pth", imported,
+                           imported_cpu, recon)
+        recon_metrics_launches += n
+    return recon_metrics_launches, reconstruct_launches, err, rerr
+
+
 def main(argv):
     import torch
 
@@ -1261,6 +1452,7 @@ def main(argv):
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on the card")
+    t_start = time.perf_counter()
 
     import numpy as np
     from eigentrajectory_tpu_torch.config import load_config
@@ -1375,12 +1567,20 @@ def main(argv):
     errs.append(err)
     rerrs.append(rerr)
 
+    # --- 9. ET-AgentFormer and the reference import ---
+    n_metrics, n_reconstruct, err, rerr = _agentformer_phase(card, recon, data, profile_dir)
+    recon_metrics_launches += n_metrics
+    reconstruct_launches += n_reconstruct
+    errs.append(err)
+    rerrs.append(rerr)
+
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",
                 "source": f"eigentrajectory_tpu_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 **measured, "library_ms": None}
 
+    print(f"[{card}] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         row("fused_recon_metrics", recon.SOURCE, "eigentrajectory_tpu/ops/pallas_recon.py:126",
             recon_metrics_launches, max(errs), times),

@@ -75,7 +75,7 @@ class ETPredictor:
         with record_function("serve.et_forward"):
             # One scene a row: a collated predictor's scene mask is all true
             # within the row (and cut to the valid slots by its pre-hook).
-            aux = tr.make_aux(torch.zeros((b, n_slots), dtype=torch.int64, device=tr.device))
+            aux = tr.make_aux(valid_t, torch.zeros_like(valid_t, dtype=torch.int32))
             coef = et_forward(tr.et, tr._predictor_fn, obs_t, valid_t, cfg.static_dist,
                               aux=aux, return_coefficients=True)
         # Only the requested rows are reconstructed, in request order: the

@@ -7,11 +7,22 @@ dependency beyond NumPy (neither flax nor the `msgpack` package), and
 port's module names and `ETParams`. `params_to_jax` and `write_flax_msgpack`
 are their inverses: a checkpoint the port writes is one the JAX package's
 `load_model` reads.
+
+The reference's own checkpoints import too. The reference saves the state
+dict of its whole EigenTrajectory module: the frozen ET parameters under
+`ET_{m,s}_descriptor.*` / `ET_{m,s}_anchor.C_anchor` and the predictor under
+`baseline_model.*`. `import_state_dict` maps such a state dict onto the
+port's predictor and `ETParams` (the basis and anchors verbatim: the weights
+were trained against exactly that pair), and `import_checkpoint_to_trainer`
+writes it as a `model_best.msgpack`:
+
+  python -m eigentrajectory_tpu_torch.interop --cfg configs/eigentrajectory-sgcn-zara1.json \
+      --pth model_best.pth --tag imported [--test] [--device cpu]
 """
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -182,7 +193,10 @@ def write_flax_msgpack(path: str, tree: Dict[str, Any]) -> None:
         f.write(data)
 
 
-# Leaf names of the JAX layers -> the port's parameter and buffer names.
+# Leaf names of the JAX layers -> the port's parameter and buffer names. Any
+# other leaf is a parameter of the JAX module itself, outside any layer (a
+# bare kernel or bias): it keeps its name and its (in, out) layout on both
+# sides.
 _PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight", "alpha": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -192,11 +206,9 @@ def _flatten(tree: Dict, names: Dict[str, str], prefix: Tuple[str, ...] = ()):
         if isinstance(value, dict):
             yield from _flatten(value, names, prefix + (key,))
         else:
-            if key not in names:
-                raise KeyError(f"no counterpart for leaf {'/'.join(prefix + (key,))}")
             if key == "kernel" and np.ndim(value) == 2:
                 value = np.asarray(value).T      # linear (in, out) -> (out, in)
-            yield ".".join(prefix + (names[key],)), value
+            yield ".".join(prefix + (names.get(key, key),)), value
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETParams]:
@@ -204,7 +216,8 @@ def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETPa
 
     Returns a state dict for the predictor (conv `kernel` (already OIHW) ->
     `weight`, linear `kernel` (in, out) -> `weight` (out, in), transposed,
-    BatchNorm `scale` -> `weight`, PReLU `alpha` -> `weight`,
+    BatchNorm and LayerNorm `scale` -> `weight`, PReLU `alpha` -> `weight`,
+    the bare kernels and biases by their own names, untransposed,
     batch_stats `mean`/`var` -> `running_mean`/`running_var`) and the
     ETParams, all as CPU float tensors.
     """
@@ -238,10 +251,11 @@ def jax_param_paths(model: nn.Module) -> Dict[str, str]:
                 continue
             if name == "weight":
                 leaf = "kernel" if isinstance(module, (nn.Conv2d, nn.Linear)) else \
-                    "scale" if "running_mean" in own else "alpha"
-            else:
-                leaf = {"bias": "bias", "running_mean": "mean", "running_var": "var"}[name]
-            paths[full] = "/".join(prefix.split(".") + [leaf])
+                    "scale" if "running_mean" in own or isinstance(module, nn.LayerNorm) \
+                    else "alpha"
+            else:                                # a bare parameter keeps its name
+                leaf = {"running_mean": "mean", "running_var": "var"}.get(name, name)
+            paths[full] = "/".join(prefix.split(".") + [leaf] if prefix else [leaf])
     return paths
 
 
@@ -270,3 +284,221 @@ def params_to_jax(model: nn.Module, et: ETParams) -> Dict[str, Any]:
         "basis_s": {"U_obs": arr(et.basis_s.U_obs), "U_pred": arr(et.basis_s.U_pred)},
         "anchor_m": arr(et.anchor_m), "anchor_s": arr(et.anchor_s)}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints: a state dict of the reference's EigenTrajectory
+# module -> the port's predictor state dict and ETParams
+# ---------------------------------------------------------------------------
+
+def _module(sd: Dict[str, np.ndarray], ours: str, theirs: str) -> Dict[str, np.ndarray]:
+    """The leaves of the reference's module `theirs` (weight, bias, running
+    statistics: the names are torch's on both sides) under our module name
+    `ours`; BatchNorm's step counter has no counterpart."""
+    pre = f"{theirs}."
+    out = {f"{ours}.{key[len(pre):]}": value for key, value in sd.items()
+           if key.startswith(pre) and "." not in key[len(pre):]
+           and not key.endswith("num_batches_tracked")}
+    if not out:
+        raise KeyError(f"the reference checkpoint has no module {theirs}")
+    return out
+
+
+def _modules(sd, pairs) -> Dict[str, np.ndarray]:
+    out = {}
+    for ours, theirs in pairs:
+        out.update(_module(sd, ours, theirs))
+    return out
+
+
+def _import_stgcnn(sd):
+    """social_stgcnn -> `models/stgcnn.py`. The reference builds a fifth
+    tpcnn and PReLU that it never calls; the port leaves them out."""
+    g = "st_gcns.0"
+    pairs = [("st_gcn_0.gcn_conv", f"{g}.gcn.conv"), ("st_gcn_0.tcn_bn1", f"{g}.tcn.0"),
+             ("st_gcn_0.tcn_prelu", f"{g}.tcn.1"), ("st_gcn_0.tcn_conv", f"{g}.tcn.2"),
+             ("st_gcn_0.tcn_bn2", f"{g}.tcn.3"), ("st_gcn_0.res_conv", f"{g}.residual.0"),
+             ("st_gcn_0.res_bn", f"{g}.residual.1"), ("st_gcn_0.out_prelu", f"{g}.prelu"),
+             ("tpcnn_output", "tpcnn_ouput")]
+    for i in range(4):
+        pairs += [(f"tpcnn_{i}", f"tpcnns.{i}"), (f"prelu_{i}", f"prelus.{i}")]
+    return _modules(sd, pairs)
+
+
+def _import_sgcn(sd):
+    """TrajectoryModel (SGCN) -> `models/sgcn.py`."""
+    swa, ours = "sparse_weighted_adjacency_matrices", "sparse_adjacency"
+    pairs = [(f"{ours}.spa_fusion_conv", f"{swa}.spa_fusion.conv.0"),
+             (f"{ours}.spa_fusion_prelu", f"{swa}.spa_fusion.conv.1")]
+    for attn in ("spatial_attention", "temporal_attention"):
+        pairs += [(f"{ours}.{attn}.{name}", f"{swa}.{attn}.{name}")
+                  for name in ("embedding", "query", "key")]
+    for stream in ("spatial", "temporal"):
+        for j in range(7):
+            base = f"{swa}.interaction_mask.{stream}_asymmetric_convolutions.{j}"
+            pairs += [(f"{ours}.interaction_mask.{stream}_{j}.{name}", f"{base}.{name}")
+                      for name in ("conv1", "conv2", "activation")]
+    for mine, theirs in (("st_gcn", "spatial_temporal_sparse_gcn"),
+                         ("ts_gcn", "temporal_spatial_sparse_gcn")):
+        for i in range(2):
+            pairs += [(f"stsgcn.{mine}_{i}.{name}", f"stsgcn.{theirs}.{i}.{name}")
+                      for name in ("embedding", "activation")]
+    pairs += [("fusion", "fusion_"), ("output", "output")]
+    for j in range(5):
+        pairs += [(f"tcn_{j}", f"tcns.{j}.0"), (f"tcn_prelu_{j}", f"tcns.{j}.1")]
+    return _modules(sd, pairs)
+
+
+def _import_mlps(sd, names) -> Dict[str, np.ndarray]:
+    """PECNet-style MLPs: the reference's `<mlp>.layers.<i>` -> our
+    `<mlp>.layer_<i>`, for every layer the checkpoint holds."""
+    pairs = []
+    for name in names:
+        i = 0
+        while f"{name}.layers.{i}.weight" in sd:
+            pairs.append((f"{name}.layer_{i}", f"{name}.layers.{i}"))
+            i += 1
+        if not i:
+            raise KeyError(f"the reference checkpoint has no MLP layers under {name}")
+    return _modules(sd, pairs)
+
+
+def _import_pecnet(sd):
+    """PECNet's predict path -> `models/pecnet.py`."""
+    return _import_mlps(sd, ("encoder_past", "encoder_dest", "non_local_theta",
+                             "non_local_phi", "non_local_g", "predictor"))
+
+
+def _import_lbebm(sd):
+    """LB-EBM's predict path -> `models/lbebm.py`."""
+    return _import_mlps(sd, ("encoder_past", "encoder_dest", "predictor"))
+
+
+def _import_agentformer(sd):
+    """AgentFormer (the ET wiring) -> `models/agentformer.py`. The fused
+    in-projections of self-attention become `in_proj` / `in_proj_self`
+    linears; those of cross-attention and `out_fc` become the bare kernels
+    of the JAX layout (in, out), transposed."""
+    pairs = [("ctx_input_fc", "context_encoder.input_fc"),
+             ("ctx_pos_encoder.fc", "context_encoder.pos_encoder.fc"),
+             ("dec_input_fc", "future_decoder.input_fc"),
+             ("dec_pos_encoder.fc", "future_decoder.pos_encoder.fc")]
+    out = {"out_fc_kernel": sd["future_decoder.out_fc.weight"].T,
+           "out_fc_bias": sd["future_decoder.out_fc.bias"]}
+
+    def attention(ours, theirs, cross):
+        pairs.append((f"{ours}.out_proj", f"{theirs}.out_proj"))
+        if cross:
+            out.update({f"{ours}.in_proj_kernel": sd[f"{theirs}.in_proj_weight"].T,
+                        f"{ours}.in_proj_bias": sd[f"{theirs}.in_proj_bias"],
+                        f"{ours}.in_proj_self_kernel": sd[f"{theirs}.in_proj_weight_self"].T,
+                        f"{ours}.in_proj_self_bias": sd[f"{theirs}.in_proj_bias_self"]})
+        else:
+            out.update({f"{ours}.in_proj.weight": sd[f"{theirs}.in_proj_weight"],
+                        f"{ours}.in_proj.bias": sd[f"{theirs}.in_proj_bias"],
+                        f"{ours}.in_proj_self.weight": sd[f"{theirs}.in_proj_weight_self"],
+                        f"{ours}.in_proj_self.bias": sd[f"{theirs}.in_proj_bias_self"]})
+
+    for kind, base, norms in (("enc", "context_encoder.tf_encoder", 2),
+                              ("dec", "future_decoder.tf_decoder", 3)):
+        for i in range(2):
+            ours, theirs = f"{kind}_layer_{i}", f"{base}.layers.{i}"
+            attention(f"{ours}.self_attn", f"{theirs}.self_attn", cross=False)
+            if kind == "dec":
+                attention(f"{ours}.multihead_attn", f"{theirs}.multihead_attn", cross=True)
+            pairs += [(f"{ours}.{name}", f"{theirs}.{name}")
+                      for name in ("linear1", "linear2", *(f"norm{j}" for j in range(1, norms + 1)))]
+    out.update(_modules(sd, pairs))
+    return out
+
+
+CONVERTERS: Dict[str, Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = {
+    "stgcnn": _import_stgcnn,
+    "sgcn": _import_sgcn,
+    "pecnet": _import_pecnet,
+    "lbebm": _import_lbebm,
+    "agentformer": _import_agentformer,
+}
+
+
+def import_et_params(sd: Dict[str, Any]) -> ETParams:
+    """The reference's `ET_{m,s}_descriptor` bases and `ET_{m,s}_anchor`
+    anchors as ETParams of CPU tensors, verbatim."""
+    def t(key):
+        return torch.from_numpy(np.array(sd[key]))
+
+    def basis(tag):
+        return ETBasis(U_obs=t(f"ET_{tag}_descriptor.U_obs_trunc"),
+                       U_pred=t(f"ET_{tag}_descriptor.U_pred_trunc"))
+
+    return ETParams(basis_m=basis("m"), basis_s=basis("s"),
+                    anchor_m=t("ET_m_anchor.C_anchor"), anchor_s=t("ET_s_anchor.C_anchor"))
+
+
+def import_state_dict(baseline: str, state_dict: Dict[str, Any]
+                      ) -> Tuple[Dict[str, torch.Tensor], ETParams]:
+    """A reference EigenTrajectory state dict (tensors or arrays) -> (the
+    port's predictor state dict for `baseline`, ETParams), CPU tensors."""
+    if baseline not in CONVERTERS:
+        raise NotImplementedError(
+            f"no reference-checkpoint converter for '{baseline}' yet; "
+            f"available: {sorted(CONVERTERS)}")
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in state_dict.items()}
+    pred_sd = {k[len("baseline_model."):]: v for k, v in sd.items()
+               if k.startswith("baseline_model.")}
+    state = {name: torch.from_numpy(np.array(value))
+             for name, value in CONVERTERS[baseline](pred_sd).items()}
+    return state, import_et_params(sd)
+
+
+def import_checkpoint_to_trainer(cfg, pth_path: str, tag: str, device: str = "cuda",
+                                 unsafe: bool = False, datasets=None):
+    """Read a reference `.pth`, convert it, load it into a trainer of `cfg`
+    on `device` and write it as `<checkpoint_dir>/<tag>/<dataset>/
+    model_best.msgpack`; returns the trainer. `datasets` as for
+    `ETTorchTrainer`.
+
+    A state dict is plain tensors, so torch's restricted unpickler reads it;
+    `unsafe=True` (CLI `--unsafe`) allows full unpickling of a file the
+    caller trusts."""
+    from .train.trainer import ETTorchTrainer
+
+    state_dict = torch.load(pth_path, map_location="cpu", weights_only=not unsafe)
+    state, et = import_state_dict(cfg.baseline, state_dict)
+    tr = ETTorchTrainer(cfg, tag=tag, datasets=datasets, device=device)
+    tr.load_state(state, et)
+    tr.save_model()
+    return tr
+
+
+def main(argv=None):
+    import argparse
+
+    from .config import load_config
+
+    ap = argparse.ArgumentParser(description="Import a reference checkpoint (.pth).")
+    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--pth", required=True)
+    ap.add_argument("--tag", default="imported")
+    ap.add_argument("--test", action="store_true", help="evaluate after importing")
+    ap.add_argument("--unsafe", action="store_true",
+                    help="allow full (arbitrary-code) unpickling of the .pth")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the card unless 'cpu' is asked for")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(args.cfg)
+    tr = import_checkpoint_to_trainer(cfg, args.pth, args.tag, device=args.device,
+                                      unsafe=args.unsafe)
+    print(f"imported {args.pth} -> {tr.checkpoint_dir}", flush=True)
+    if args.test:
+        results = tr.test()
+        print(f"Scene: {cfg.dataset}", *[f"{k}: {v:.8f}" for k, v in results.items()],
+              flush=True)
+        return results
+    return None
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,297 @@
+"""ET-AgentFormer: the agent-aware transformer predictor in ET coefficient
+space.
+
+The counterpart of `eigentrajectory_tpu/models/agentformer.py`
+(`AgentFormerLight`) at the published widths: model width 256, feed-forward
+512, 8 heads, dropout 0.1, 2 encoder and 2 decoder layers, the positional
+table concatenated to the input. The scene axis is written out: a (B, N)
+block is B rows of N agent slots, and each row is one sequence. A packed
+batch of the collated regime is one row (B = 1).
+
+Sequence layout is time-major, agent-interleaved: token t * N + a is agent
+a at step t. The decoder is one causal pass over k copies of the last
+observed token, which equals the reference's k-step loop: with no latent
+code the loop feeds back the original token, not its prediction, so step
+i's input is i + 1 copies of it and only the last step's output is kept.
+
+Attention is agent-aware: the inter-agent and the same-agent logits come
+from two projections of the queries and keys and are blended by the
+same-agent mask before the softmax. The additive mask holds -1e9 on padded
+key slots, -inf between agents farther apart than `conn_dist` (off by
+default), -1e9 across scenes when `scene_ids` is given (the packed eval
+only: training attends across the whole packed batch, as the reference's
+collated training does) and the block-causal -inf of the decoder.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .common import Dropout, zero_invalid
+
+TF_MODEL_DIM = 256
+TF_FF_DIM = 512
+TF_NHEAD = 8
+TF_DROPOUT = 0.1
+NLAYER_ENC = 2
+NLAYER_DEC = 2
+# Layer norm epsilon: flax's default (torch's is 1e-5).
+LN_EPS = 1e-6
+
+
+def positional_encoding(max_len: int, d_model: int) -> np.ndarray:
+    """The sinusoidal table (max_len, d_model), float32, as the JAX module
+    computes it."""
+    pe = np.zeros((max_len, d_model), np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * (-math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+def _xavier_linear(in_features: int, out_features: int) -> nn.Linear:
+    """Linear with a xavier-uniform weight and a zero bias (the attention
+    projections' initialization)."""
+    layer = nn.Linear(in_features, out_features)
+    nn.init.xavier_uniform_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class AgentAwareAttention(nn.Module):
+    """Agent-aware multi-head attention over (B, L, E) queries and (B, S, E)
+    keys.
+
+    Self-attention (`cross=False`) projects q, k, v with one fused
+    `in_proj` and q_self, k_self with `in_proj_self`. Cross-attention keeps
+    the JAX module's bare (E, 3E) and (E, 2E) kernels, in the JAX layout:
+    the queries take their first E columns, the keys the rest.
+    """
+
+    def __init__(self, cross: bool, embed_dim: int = TF_MODEL_DIM,
+                 num_heads: int = TF_NHEAD, dropout: float = TF_DROPOUT):
+        super().__init__()
+        e = embed_dim
+        self.cross, self.embed_dim, self.num_heads = cross, e, num_heads
+        if cross:
+            self.in_proj_kernel = nn.Parameter(nn.init.xavier_uniform_(torch.empty(e, 3 * e)))
+            self.in_proj_bias = nn.Parameter(torch.zeros(3 * e))
+            self.in_proj_self_kernel = nn.Parameter(
+                nn.init.xavier_uniform_(torch.empty(e, 2 * e)))
+            self.in_proj_self_bias = nn.Parameter(torch.zeros(2 * e))
+        else:
+            self.in_proj = _xavier_linear(e, 3 * e)
+            self.in_proj_self = _xavier_linear(e, 2 * e)
+        self.out_proj = nn.Linear(e, e)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, same_agent: torch.Tensor,
+                attn_bias: torch.Tensor) -> torch.Tensor:
+        # query (B, L, E), key (B, S, E), same_agent (L, S) bool, attn_bias (B, L, S)
+        e, h = self.embed_dim, self.num_heads
+        hd = e // h
+        scaling = hd ** -0.5
+        if self.cross:
+            w, b = self.in_proj_kernel, self.in_proj_bias
+            q = query @ w[:, :e] + b[:e]
+            k, v = (key @ w[:, e:] + b[e:]).chunk(2, dim=-1)
+            ws, bs = self.in_proj_self_kernel, self.in_proj_self_bias
+            q_self = query @ ws[:, :e] + bs[:e]
+            k_self = key @ ws[:, e:] + bs[e:]
+        else:
+            q, k, v = self.in_proj(query).chunk(3, dim=-1)
+            q_self, k_self = self.in_proj_self(query).chunk(2, dim=-1)
+        q, q_self = q * scaling, q_self * scaling
+
+        def heads(x):                          # (B, L, E) -> (B, H, L, hd)
+            return x.reshape(x.shape[0], x.shape[1], h, hd).transpose(1, 2)
+
+        inter = heads(q) @ heads(k).transpose(-1, -2)               # (B, H, L, S)
+        own = heads(q_self) @ heads(k_self).transpose(-1, -2)
+        m = same_agent.to(inter.dtype)
+        w_att = inter * (1 - m) + own * m + attn_bias[:, None]
+        w_att = self.dropout(torch.softmax(w_att, dim=-1))
+        out = (w_att @ heads(v)).transpose(1, 2).reshape(query.shape[0], -1, e)
+        return self.out_proj(out)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN encoder layer: self-attention, then the feed-forward block,
+    each with dropout, a residual and a layer norm."""
+
+    def __init__(self):
+        super().__init__()
+        self.self_attn = AgentAwareAttention(cross=False)
+        self.norm1 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
+        self.linear1 = nn.Linear(TF_MODEL_DIM, TF_FF_DIM)
+        self.linear2 = nn.Linear(TF_FF_DIM, TF_MODEL_DIM)
+        self.norm2 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
+        self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(3))
+
+    def forward(self, src, same_agent, attn_bias):
+        src = self.norm1(src + self.drops[0](self.self_attn(src, src, same_agent, attn_bias)))
+        h = self.linear2(self.drops[1](torch.relu(self.linear1(src))))
+        return self.norm2(src + self.drops[2](h))
+
+
+class DecoderLayer(nn.Module):
+    """Post-LN decoder layer: self-attention, cross-attention on the
+    encoder's context, then the feed-forward block."""
+
+    def __init__(self):
+        super().__init__()
+        self.self_attn = AgentAwareAttention(cross=False)
+        self.norm1 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
+        self.multihead_attn = AgentAwareAttention(cross=True)
+        self.norm2 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
+        self.linear1 = nn.Linear(TF_MODEL_DIM, TF_FF_DIM)
+        self.linear2 = nn.Linear(TF_FF_DIM, TF_MODEL_DIM)
+        self.norm3 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
+        self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(4))
+
+    def forward(self, tgt, memory, sa_tgt, bias_tgt, sa_mem, bias_mem):
+        tgt = self.norm1(tgt + self.drops[0](self.self_attn(tgt, tgt, sa_tgt, bias_tgt)))
+        tgt = self.norm2(tgt + self.drops[1](self.multihead_attn(tgt, memory, sa_mem, bias_mem)))
+        h = self.linear2(self.drops[2](torch.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.drops[3](h))
+
+
+class PosEncodeConcat(nn.Module):
+    """fc([x, pe]) and dropout, pe the sinusoidal table repeated over the
+    agents (token t * N + a gets row t).
+
+    The table is no parameter or buffer, so it is no checkpoint leaf: it is
+    built from NumPy at the first forward of each (length, agents, device,
+    dtype) and kept in a plain dict.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.fc = nn.Linear(2 * TF_MODEL_DIM, TF_MODEL_DIM)
+        self.dropout = Dropout(TF_DROPOUT)
+        self._tables: Dict[Tuple, torch.Tensor] = {}
+
+    def table(self, t_len: int, n_agent: int, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+        key = (t_len, n_agent, device, dtype)
+        if key not in self._tables:
+            pe = np.repeat(positional_encoding(t_len, TF_MODEL_DIM), n_agent, axis=0)
+            self._tables[key] = torch.from_numpy(pe).to(device, dtype)
+        return self._tables[key]
+
+    def forward(self, x: torch.Tensor, t_len: int, n_agent: int) -> torch.Tensor:
+        pe = self.table(t_len, n_agent, x.device, x.dtype)
+        h = torch.cat([x, pe.expand(x.shape[0], -1, -1)], dim=-1)
+        return self.dropout(self.fc(h))
+
+
+def _same_agent(lt: int, ls: int, n: int, device) -> torch.Tensor:
+    """(lt, ls) bool: tokens of the same agent."""
+    return (torch.arange(lt, device=device)[:, None] % n
+            == torch.arange(ls, device=device)[None, :] % n)
+
+
+class AgentFormerLight(nn.Module):
+    """The ET-wired AgentFormer over (B, T, N, 1) rows of coefficient
+    "positions" -> (B, N, k, s)."""
+
+    def __init__(self, past_frames: int, future_frames: int, forecast_dim: int,
+                 conn_dist: float = 100000.0, traj_scale: float = 1.0):
+        super().__init__()
+        self.past_frames, self.future_frames = past_frames, future_frames
+        self.forecast_dim = forecast_dim
+        self.conn_dist, self.traj_scale = conn_dist, traj_scale
+        self.ctx_input_fc = nn.Linear(1, TF_MODEL_DIM)
+        self.ctx_pos_encoder = PosEncodeConcat()
+        for i in range(NLAYER_ENC):
+            self.add_module(f"enc_layer_{i}", EncoderLayer())
+        self.dec_input_fc = nn.Linear(1, TF_MODEL_DIM)
+        self.dec_pos_encoder = PosEncodeConcat()
+        for i in range(NLAYER_DEC):
+            self.add_module(f"dec_layer_{i}", DecoderLayer())
+        # out_fc: N(0, 0.01) weights and a zero bias, in the JAX layout (in, out).
+        self.out_fc_kernel = nn.Parameter(torch.randn(TF_MODEL_DIM, forecast_dim) * 0.01)
+        self.out_fc_bias = nn.Parameter(torch.zeros(forecast_dim))
+
+    def forward(self, pre_motion: torch.Tensor, valid: torch.Tensor,
+                scene_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # pre_motion (B, T, N, 1), valid (B, N), scene_ids (B, N) or None
+        b, t, n, _ = pre_motion.shape
+        tf, dev, dtype = self.future_frames, pre_motion.device, pre_motion.dtype
+        zero = torch.zeros((), device=dev, dtype=dtype)
+        key_bias = torch.where(valid, zero, torch.full_like(zero, -1e9))        # (B, N)
+        if self.conn_dist < 1000.0:
+            cur = pre_motion[:, -1]                                             # (B, N, 1)
+            dist = torch.linalg.vector_norm(cur[:, :, None] - cur[:, None], dim=-1)
+            agent_mask = torch.where(dist > self.conn_dist / self.traj_scale,
+                                     torch.full_like(zero, -math.inf), zero)   # (B, N, N)
+        else:
+            agent_mask = torch.zeros((b, n, n), device=dev, dtype=dtype)
+        if scene_ids is not None:
+            cross_scene = scene_ids[:, :, None] != scene_ids[:, None, :]
+            agent_mask = agent_mask + torch.where(cross_scene, torch.full_like(zero, -1e9), zero)
+
+        def pad_bias(lt, ls):
+            # The (N, N) agent mask tiled over the time blocks, and the
+            # padded key slots masked: (B, lt, ls).
+            return agent_mask.repeat(1, lt // n, ls // n) + key_bias.repeat(1, ls // n)[:, None]
+
+        # --- context encoder ---
+        x = self.ctx_input_fc(pre_motion.reshape(b, t * n, 1))
+        x = self.ctx_pos_encoder(x, t, n)
+        sa, bias = _same_agent(t * n, t * n, n, dev), pad_bias(t * n, t * n)
+        for i in range(NLAYER_ENC):
+            x = getattr(self, f"enc_layer_{i}")(x, sa, bias)
+        context = x                                                             # (B, T*N, E)
+
+        # --- future decoder: one causal pass over tf copies of the last token ---
+        dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                         # (B, tf*N, 1)
+        y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n)
+        sa_tgt = _same_agent(tf * n, tf * n, n, dev)
+        t_idx = torch.arange(tf * n, device=dev) // n
+        causal = torch.where(t_idx[:, None] >= t_idx[None, :], zero,
+                             torch.full_like(zero, -math.inf))
+        bias_tgt = causal + pad_bias(tf * n, tf * n)
+        sa_mem, bias_mem = _same_agent(tf * n, t * n, n, dev), pad_bias(tf * n, t * n)
+        for i in range(NLAYER_DEC):
+            y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem, bias_mem)
+
+        seq_out = y @ self.out_fc_kernel + self.out_fc_bias                      # (B, tf*N, s)
+        return seq_out.reshape(b, tf, n, self.forecast_dim).transpose(1, 2)      # (B, N, tf, s)
+
+
+def make_model(cfg) -> nn.Module:
+    bc = getattr(cfg, "baseline_config", None) or {}
+    return AgentFormerLight(past_frames=cfg.k + 2, future_frames=cfg.k,
+                            forecast_dim=cfg.num_samples,
+                            conn_dist=float(bc.get("conn_dist", 100000.0)),
+                            traj_scale=float(bc.get("traj_scale", 1.0)))
+
+
+def prepare(c_obs: torch.Tensor, obs_ori: torch.Tensor, aux: Dict) -> Tuple:
+    """Pre-hook: c_obs (B, k, N), obs_ori (B, 2, N) -> (pre_motion
+    (B, k + 2, N, 1) = [C_obs; ori] zeroed at the invalid slots and
+    detached, valid (B, N)), and the scene ids (B, N) under
+    `isolate_scenes` (the packed eval)."""
+    valid = aux["ped_valid"]
+    obs = zero_invalid(torch.cat([c_obs, obs_ori], dim=1), valid, 2).detach()
+    if aux.get("isolate_scenes", False):
+        return (obs[..., None], valid, aux["scene_ids"])
+    return (obs[..., None], valid)
+
+
+def finalize(output_data: torch.Tensor, aux: Dict) -> torch.Tensor:
+    """Post-hook: (B, N, k, s) -> (B, k, N, s)."""
+    return output_data.transpose(1, 2)
+
+
+BATCHING = "collated"
+# Packed-eval cap: every token of a packed row attends to every other, so
+# the score tensors grow with the square of the slots.
+EVAL_PED_CAP = 128

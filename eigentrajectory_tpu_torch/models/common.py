@@ -90,12 +90,46 @@ class MaskedBatchNorm2d(nn.Module):
             self.bias[None, :, None, None]
 
 
+class Dropout(nn.Module):
+    """Dropout as flax's `nn.Dropout`: each element kept where a uniform draw
+    is >= `rate` and scaled by 1 / (1 - rate), zeroed elsewhere; the identity
+    in eval mode.
+
+    The draws come from `generator` alone, which the trainer sets
+    (`set_dropout_generator`), never from torch's global stream, so that a
+    run is made by its seed and resumes exactly. A module in train mode
+    without a generator raises.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator: "
+                               "set_dropout_generator(model, generator)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Have every `Dropout` of `model` draw from `generator`."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
+
+
 class TorchMLP(nn.Module):
     """PECNet / LB-EBM style MLP: `nn.Linear` layers `layer_0`, `layer_1`,
     ... (the JAX module's names), ReLU between them, an optional sigmoid at
-    the end (`discrim`), and dropout after each hidden ReLU unless `dropout`
-    is -1 (rate min(0.1, dropout / 3) after the second layer, `dropout`
-    elsewhere; active in train mode only)."""
+    the end (`discrim`), and `Dropout` after each hidden ReLU unless
+    `dropout` is -1 (rate min(0.1, dropout / 3) after the second layer,
+    `dropout` elsewhere; active in train mode only)."""
 
     def __init__(self, in_features: int, hidden: Sequence[int], out_features: int,
                  discrim: bool = False, dropout: float = -1.0):
@@ -106,7 +140,7 @@ class TorchMLP(nn.Module):
             self.add_module(f"layer_{i}", nn.Linear(dims[i], dims[i + 1]))
         self.discrim = discrim
         self.drops = nn.ModuleList(
-            nn.Dropout(min(0.1, dropout / 3) if i == 1 else dropout)
+            Dropout(min(0.1, dropout / 3) if i == 1 else dropout)
             for i in range(self.n_layers - 1)) if dropout != -1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,15 @@ reconstructed, denormalized and scored by the fused kernel of `ops/recon.py`
 packed batch; COL is computed per scene (a packed batch's scenes are
 gathered into (G, m) blocks first).
 
+Dropout draws from the trainer's own generator (`dropout_generator`,
+seeded from `cfg.seed` on the trainer's device), never from torch's global
+stream, so a run is made by its seed and a resumed run continues it.
+
 `save_model` writes `model_best.msgpack` in the JAX package's format, so
 either package loads it. The resume state (`resume.pt`) is the port's own:
 an optax state tree and a JAX key mean nothing to `torch.optim`.
+
+One device only: a config with `mesh_data_axis` > 1 is refused.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from ..etspace.facade import ETParams, calculate_parameters, et_forward
 from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_flax_msgpack,
                        write_flax_msgpack)
 from ..models import get_baseline
+from ..models.common import set_dropout_generator
 from ..ops.recon import fused_recon_metrics
 from ..utils.profiling import StepTimer, trace_annotation
 
@@ -65,12 +72,17 @@ class ETTorchTrainer:
     splits from `cfg.dataset_dir`. `device` defaults to the card; tests pass
     "cpu". `dtype` is the type of the weights and activations: float32, the
     only type the CUDA kernels take, or float64 on the CPU for a reference
-    that f32 rounding does not reach. The initial weights and the k-means
-    draws of `init_descriptor` come from `cfg.seed`.
+    that f32 rounding does not reach. The initial weights, the k-means draws
+    of `init_descriptor` and the dropout draws come from `cfg.seed`.
     """
 
     def __init__(self, cfg: ExpConfig, tag: str = "EigenTrajectory-TPU",
                  datasets=None, device: str = "cuda", dtype: torch.dtype = torch.float32):
+        if cfg.mesh_data_axis > 1:
+            raise NotImplementedError(
+                f"mesh_data_axis = {cfg.mesh_data_axis}: the port runs on one card; sharding "
+                f"a step over several (ROADMAP.md, Queue A item 8, multi-GPU) is not ported "
+                f"yet. Set mesh_data_axis to 1.")
         self.cfg = cfg
         self.tag = tag
         self.device = torch.device(device)
@@ -104,11 +116,13 @@ class ETTorchTrainer:
         self.step_timer: Optional[StepTimer] = None
         # A CPU generator, whatever the device: see etspace/anchor.py.
         self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             model = self.baseline.make_model(cfg)
         # Train mode only inside train(): no evaluation moves the BN statistics.
         self.model = model.to(self.device, dtype).eval()
+        set_dropout_generator(self.model, self.dropout_generator)
         self.optimizer = self._make_optimizer()
         self.et: Optional[ETParams] = None
 
@@ -143,17 +157,17 @@ class ETTorchTrainer:
                               for x in (batch.ped_valid, batch.scene_valid))
         return obs, pred, valid, scene_valid
 
-    def make_aux(self, scene_ids: torch.Tensor) -> Dict:
-        """The predictor's extra inputs: the number of samples, and for the
-        collated predictors the scene mask (B, N, N) of a block whose slots
-        carry the scene ids `scene_ids` (B, N), true where both slots hold
-        the same scene and are not padding (-1). The sequenced predictors
-        take no mask, and `scene_ids` is not read for them."""
-        aux = {"num_samples": self.cfg.num_samples}
-        if self.collated:
-            aux["scene_mask"] = ((scene_ids[:, :, None] == scene_ids[:, None, :])
-                                 & (scene_ids[:, :, None] >= 0))
-        return aux
+    def make_aux(self, valid: torch.Tensor, scene_info: torch.Tensor) -> Dict:
+        """The predictor's extra inputs for a (B, N) block with validity
+        `valid`, as the JAX trainer's aux template holds them: the number of
+        samples, the scene id of each slot (B, N) and the scene mask
+        (B, N, N), true where both slots hold the same scene and neither is
+        padding (-1). Collated: `scene_info` holds the scene ids. Sequenced:
+        it holds the scenes' validity (B,), and each row is one scene (ids
+        0)."""
+        ids = scene_info if self.collated else torch.zeros_like(valid, dtype=torch.int32)
+        return {"num_samples": self.cfg.num_samples, "scene_ids": ids,
+                "scene_mask": (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)}
 
     # ----------------------------------------------------------- descriptor
     def init_descriptor(self):
@@ -184,7 +198,7 @@ class ETTorchTrainer:
         pedestrians, non-finite -> 0.
         """
         out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
-                         pred_traj=pred, aux=self.make_aux(scene_info))
+                         pred_traj=pred, aux=self.make_aux(valid, scene_info))
         losses = (out["loss_eigentraj"] + out["loss_euclidean_ade"]
                   + out["loss_euclidean_fde"])                               # (B,)
         losses = torch.nan_to_num(losses, nan=0.0, posinf=0.0, neginf=0.0)
@@ -322,7 +336,7 @@ class ETTorchTrainer:
         for batch in batches:
             obs, pred, valid, scene_info = self._to_device(batch)
             out = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
-                             pred_traj=pred, aux=self.make_aux(scene_info))
+                             pred_traj=pred, aux=self.make_aux(valid, scene_info))
             n = valid.sum(dim=1).to(self.dtype)
             weight = n if self.collated else n * scene_info.to(self.dtype)
             parts.append((out["loss_euclidean_fde"] * weight).sum())
@@ -430,7 +444,7 @@ class ETTorchTrainer:
         """
         cfg = self.cfg
         p = valid.shape[1]
-        aux = self.make_aux(scene_ids)
+        aux = self.make_aux(valid, scene_ids)
         aux["center_scene_ids"] = scene_ids
         aux["isolate_scenes"] = True
         with record_function("eval.et_forward"):
@@ -494,8 +508,9 @@ class ETTorchTrainer:
 
     def save_resume_state(self, epoch: int, filename: str = "resume.pt"):
         """Full training state for crash recovery: weights, BN statistics, ET
-        parameters, optimizer moments and step counts, generator state, the
-        epoch to go on from and the loss log."""
+        parameters, optimizer moments and step counts, the states of the
+        k-means and the dropout generators, the epoch to go on from and the
+        loss log."""
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         state = {
             "model": self.model.state_dict(),
@@ -503,6 +518,7 @@ class ETTorchTrainer:
                    "anchor_m": self.et.anchor_m, "anchor_s": self.et.anchor_s},
             "optimizer": self.optimizer.state_dict(),
             "generator": self.generator.get_state(),
+            "dropout_generator": self.dropout_generator.get_state(),
             "epoch": epoch,
             "log": self.log,
         }
@@ -522,6 +538,10 @@ class ETTorchTrainer:
                               et["anchor_m"], et["anchor_s"]))
         self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"].cpu())
+        if "dropout_generator" in state:
+            self.dropout_generator.set_state(state["dropout_generator"].cpu())
+        # else: a file written before the dropout stream was saved, by a model
+        # that draws no dropout; the freshly seeded generator gives its run.
         self.log = state["log"]
         return int(state["epoch"])
 
@@ -529,8 +549,12 @@ class ETTorchTrainer:
         """Load predictor weights, BN statistics and ET parameters from the
         checkpoint `checkpoint_dir/tag/dataset/filename`, written by either
         package."""
-        state, et = params_from_jax(read_flax_msgpack(
-            os.path.join(self.checkpoint_dir, filename)))
+        self.load_state(*params_from_jax(read_flax_msgpack(
+            os.path.join(self.checkpoint_dir, filename))))
+
+    def load_state(self, state: Dict[str, torch.Tensor], et: ETParams):
+        """Load a predictor state dict that must fill every parameter and
+        statistic the model calls, and the ET parameters."""
         missing, unexpected = self.model.load_state_dict(state, strict=False)
         unused = getattr(self.model, "unused_prefixes", lambda: ())()
         missing = [k for k in missing if not k.startswith(unused)]

@@ -52,6 +52,9 @@ def test_port_imports_no_jax():
     "eigentrajectory_tpu_torch.utils.profiling",
     "eigentrajectory_tpu_torch.models.pecnet",
     "eigentrajectory_tpu_torch.models.lbebm",
+    "eigentrajectory_tpu_torch.models.agentformer",
+    "eigentrajectory_tpu_torch.models.common",
+    "eigentrajectory_tpu_torch.inference",
     "eigentrajectory_tpu_torch.data.batching",
 ])
 def test_training_modules_load_nothing_of_jax(module):

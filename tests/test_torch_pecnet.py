@@ -185,7 +185,7 @@ def test_torch_mlp_layers_map_to_the_jax_paths_and_its_dropout():
     assert lb.predictor.layer_3.out_features == K * S
     assert lb.encoder_dest.layer_1.out_features == 128
     mlp = TorchMLP(4, (8, 8, 8), 2, dropout=0.3)
-    np.testing.assert_allclose([d.p for d in mlp.drops], [0.3, 0.1, 0.3])
+    np.testing.assert_allclose([d.rate for d in mlp.drops], [0.3, 0.1, 0.3])
     x = torch.randn(3, 4)
     mlp.eval()
     with torch.no_grad():

@@ -432,6 +432,27 @@ def test_resume_equals_a_straight_run_bitwise(tmp_path, baseline):
         assert float(s1[key]["step"]) == float(s2[key]["step"]) == 12.0
 
 
+def test_resume_from_a_file_without_the_dropout_stream(tmp_path):
+    """A resume.pt written before the dropout generator was saved resumes
+    with the freshly seeded generator: ET-STGCNN draws no dropout, so the
+    run is the straight one."""
+    straight = _torch_trainer("stgcnn", tmp_path, tag="straight")
+    straight.init_descriptor()
+    straight.fit(num_epochs=2, verbose=False)
+    first = _torch_trainer("stgcnn", tmp_path, tag="old")
+    first.init_descriptor()
+    first.fit(num_epochs=1, verbose=False, checkpoint_every=1)
+    path = os.path.join(first.checkpoint_dir, "resume.pt")
+    state = torch.load(path, weights_only=True)
+    del state["dropout_generator"]
+    torch.save(state, path)
+    second = _torch_trainer("stgcnn", tmp_path, tag="old")
+    second.fit(num_epochs=2, verbose=False, resume=True)
+    assert len(second.epoch_timer.durations) == 1 and second.log == straight.log
+    seeded = torch.Generator().manual_seed(second.cfg.seed).get_state()
+    assert torch.equal(second.dropout_generator.get_state(), seeded)
+
+
 def test_resume_without_a_file_starts_at_epoch_0(tmp_path):
     tr = _torch_trainer("stgcnn", tmp_path, tag="nofile")
     assert tr.load_resume_state() == 0
