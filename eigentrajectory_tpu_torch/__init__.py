@@ -4,17 +4,17 @@ The PyTorch counterpart of `eigentrajectory_tpu`. Module names follow the JAX
 package so that each part can be found beside its reference; the JAX package
 stays the reference every module here is tested against.
 
-Layer map (the training, evaluation and serving paths of ET-STGCNN and
-ET-SGCN, sequenced, and of ET-PECNet, ET-LB-EBM and ET-AgentFormer,
-collated):
+Layer map (the training, evaluation and serving paths of ET-STGCNN,
+ET-SGCN, ET-DMRGCN and ET-Graph-TERN, sequenced, and of ET-PECNet,
+ET-LB-EBM and ET-AgentFormer, collated):
   config          typed experiment configuration
   data            trajectory windowing, augmentation, padded scene batches
                   and packed flat-pedestrian batches
   etspace         normalizer / descriptor fit + projection / k-means anchors
                   + refine / facade with the training losses and the
                   per-scene centring of packed batches
-  models          the predictor registry (stgcnn, sgcn, pecnet, lbebm,
-                  agentformer)
+  models          the predictor registry (stgcnn, sgcn, dmrgcn, graphtern,
+                  pecnet, lbebm, agentformer)
   metrics         min-of-S ADE/FDE/TCC/COL with a leading scene axis
   ops             hand-written CUDA kernels with their plain PyTorch versions
   interop         flax msgpack checkpoints <-> PyTorch modules and tensors;

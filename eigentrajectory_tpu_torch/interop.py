@@ -349,6 +349,41 @@ def _import_sgcn(sd):
     return _modules(sd, pairs)
 
 
+def _import_dmrgcn(sd):
+    """social_dmrgcn -> `models/dmrgcn.py`."""
+    g = "st_dmrgcns.0"
+    pairs = [("st_dmrgcn_0.tcn_prelu", f"{g}.tcn.0"), ("st_dmrgcn_0.tcn_conv", f"{g}.tcn.1"),
+             ("st_dmrgcn_0.res_conv", f"{g}.residual.0"), ("st_dmrgcn_0.out_prelu", f"{g}.prelu")]
+    pairs += [(f"st_dmrgcn_0.gcn_{r}.conv", f"{g}.gcns.{r}.conv") for r in range(2)]
+    for i in range(4):
+        pairs += [(f"tpcnn_{i}.gta_0", f"tpcnns.{i}.gtacn.0.0"),
+                  (f"tpcnn_{i}.gta_prelu_0", f"tpcnns.{i}.gtacn.0.1")]
+        for j in range(2):
+            pairs += [(f"tpcnn_{i}.tpcn_{j}", f"tpcnns.{i}.tpcn.{j}.0"),
+                      (f"tpcnn_{i}.tpcn_prelu_{j}", f"tpcnns.{i}.tpcn.{j}.1")]
+    pairs.append(("tpcnn_0.res_conv", "tpcnns.0.residual.0"))
+    return _modules(sd, pairs)
+
+
+def _import_graphtern(sd):
+    """graph_tern_light -> `models/graphtern.py`. The reference's st_mrgcn
+    builds an output PReLU (`tp_mrgcns.0.prelu`) that it skips with
+    use_mdn=True; the port leaves it out."""
+    g = "tp_mrgcns.0"
+    pairs = [("tp_mrgcn_0.gcn.conv", f"{g}.gcn.conv"), ("tp_mrgcn_0.tcn_prelu", f"{g}.tcn.0"),
+             ("tp_mrgcn_0.tcn_conv", f"{g}.tcn.1"), ("tp_mrgcn_0.res_conv", f"{g}.residual.0")]
+    for k in range(6):
+        pairs += [(f"epcnn_{k}.tpcn.conv", f"tpcnns.{k}.tpcns.0.0"),
+                  (f"epcnn_{k}.tpcn_prelu", f"tpcnns.{k}.tpcns.0.1"),
+                  (f"epcnn_{k}.cpcn.conv", f"tpcnns.{k}.cpcns.0.0"),
+                  (f"epcnn_{k}.cpcn_prelu", f"tpcnns.{k}.cpcns.0.1")]
+    # At the ET widths only block 0 changes the time axis (8 -> 6) and only
+    # block 5 the channels (16 -> 20).
+    pairs += [("epcnn_0.restconv", "tpcnns.0.restconv.0"),
+              ("epcnn_5.rescconv", "tpcnns.5.rescconv.0")]
+    return _modules(sd, pairs)
+
+
 def _import_mlps(sd, names) -> Dict[str, np.ndarray]:
     """PECNet-style MLPs: the reference's `<mlp>.layers.<i>` -> our
     `<mlp>.layer_<i>`, for every layer the checkpoint holds."""
@@ -415,6 +450,8 @@ def _import_agentformer(sd):
 CONVERTERS: Dict[str, Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = {
     "stgcnn": _import_stgcnn,
     "sgcn": _import_sgcn,
+    "dmrgcn": _import_dmrgcn,
+    "graphtern": _import_graphtern,
     "pecnet": _import_pecnet,
     "lbebm": _import_lbebm,
     "agentformer": _import_agentformer,

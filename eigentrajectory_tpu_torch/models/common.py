@@ -124,6 +124,63 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
             module.generator = generator
 
 
+class DropEdge(nn.Module):
+    """DropEdge over a block of multi-relational adjacencies (B, R, T, N, N):
+    each edge kept where a uniform draw is <= `percent`, zeroed elsewhere,
+    and NOT rescaled; the identity in eval mode.
+
+    The JAX layer draws from one key per scene. Here the caller sets `keep`,
+    the kept-edge mask of the rows it runs (`draw_edge_keeps`), before a
+    train-mode forward: the trainer draws it for the whole block once a step
+    from its `dropout_generator`, so a scene's draws do not depend on how the
+    block is chunked. The mask is a plain attribute, not a buffer: it is no
+    checkpoint leaf. A module in train mode without a mask raises.
+    """
+
+    def __init__(self, relation: int, seq_len: int, percent: float = 0.8):
+        super().__init__()
+        self.relation = relation
+        self.seq_len = seq_len
+        self.percent = percent
+        self.keep: Optional[torch.Tensor] = None
+
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return a
+        if self.keep is None:
+            raise RuntimeError("DropEdge in train mode needs its kept-edge mask: "
+                               "set_edge_keeps(model, draw_edge_keeps(model, ...))")
+        if self.keep.shape != a.shape:
+            raise ValueError(f"DropEdge mask {tuple(self.keep.shape)} for an adjacency "
+                             f"{tuple(a.shape)}")
+        return a * self.keep.to(a.dtype)
+
+
+def drop_edge_layers(model: nn.Module):
+    """The `DropEdge` layers of `model`, in module order."""
+    return [m for m in model.modules() if isinstance(m, DropEdge)]
+
+
+def draw_edge_keeps(model: nn.Module, generator: torch.Generator, rows: int,
+                    slots: int):
+    """One kept-edge mask (rows, R, T, slots, slots) for each DropEdge layer
+    of `model`, in module order, drawn as float32 uniforms from `generator`
+    on its device: the same masks whatever the dtype of the model."""
+    return [torch.rand((rows, m.relation, m.seq_len, slots, slots), generator=generator,
+                       device=generator.device, dtype=torch.float32) <= m.percent
+            for m in drop_edge_layers(model)]
+
+
+def set_edge_keeps(model: nn.Module, keeps):
+    """Hand each DropEdge layer of `model` its mask, in module order (None or
+    an empty list clears them all)."""
+    layers = drop_edge_layers(model)
+    if keeps and len(keeps) != len(layers):
+        raise ValueError(f"{len(keeps)} DropEdge masks for {len(layers)} layers")
+    for i, m in enumerate(layers):
+        m.keep = keeps[i] if keeps else None
+
+
 class TorchMLP(nn.Module):
     """PECNet / LB-EBM style MLP: `nn.Linear` layers `layer_0`, `layer_1`,
     ... (the JAX module's names), ReLU between them, an optional sigmoid at

@@ -2,21 +2,23 @@
 
 The counterpart of `eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer`).
 
-* sequenced (ET-STGCNN, ET-SGCN): padded blocks of scenes go through the ET
-  facade with the scene axis written out. The step loss is the sum over the
-  block's scenes of the three per-scene losses (non-finite ones zeroed,
-  padding scenes weighted 0) divided by `cfg.batch_size`; the epoch loss is
-  the sum of the step losses over the number of scenes.
-  `cfg.micro_batches` > 1 accumulates the gradient over chunks of the block;
-  the result equals the whole-block step, the masked-BN statistics included.
-* collated (ET-PECNet, ET-LB-EBM): whole scenes are packed into flat batches
-  of about `cfg.batch_size` pedestrians, padded to `p_max` slots, and go
-  through the facade as one row (B = 1) with a block-diagonal scene mask.
-  The step loss is one masked mean over the valid pedestrians of the packed
-  batch (non-finite -> 0), with no division by the batch size; the epoch
-  loss is the sum of the step losses over the number of batches. Training
-  and validation centre the origins over the whole packed batch, as the
-  reference's collated training does; `test()` centres them per scene.
+* sequenced (ET-STGCNN, ET-SGCN, ET-DMRGCN, ET-Graph-TERN): padded blocks
+  of scenes go through the ET facade with the scene axis written out. The
+  step loss is the sum over the block's scenes of the three per-scene
+  losses (non-finite ones zeroed, padding scenes weighted 0) divided by
+  `cfg.batch_size`; the epoch loss is the sum of the step losses over the
+  number of scenes. `cfg.micro_batches` > 1 accumulates the gradient over
+  chunks of the block; the result equals the whole-block step, the
+  masked-BN statistics and the DropEdge draws included.
+* collated (ET-PECNet, ET-LB-EBM, ET-AgentFormer): whole scenes are packed
+  into flat batches of about `cfg.batch_size` pedestrians, padded to `p_max`
+  slots, and go through the facade as one row (B = 1) with a block-diagonal
+  scene mask. The step loss is one masked mean over the valid pedestrians
+  of the packed batch (non-finite -> 0), with no division by the batch
+  size; the epoch loss is the sum of the step losses over the number of
+  batches. Training and validation centre the origins over the whole packed
+  batch, as the reference's collated training does; `test()` centres them
+  per scene.
 
 Every step's gradient goes through the JAX trainer's optimizer chain in the
 same order: NaN entries zeroed, global-norm clip as optax writes it, AdamW
@@ -28,9 +30,11 @@ reconstructed, denormalized and scored by the fused kernel of `ops/recon.py`
 packed batch; COL is computed per scene (a packed batch's scenes are
 gathered into (G, m) blocks first).
 
-Dropout draws from the trainer's own generator (`dropout_generator`,
-seeded from `cfg.seed` on the trainer's device), never from torch's global
-stream, so a run is made by its seed and a resumed run continues it.
+Dropout and DropEdge draw from the trainer's own generator
+(`dropout_generator`, seeded from `cfg.seed` on the trainer's device), never
+from torch's global stream, so a run is made by its seed and a resumed run
+continues it. DropEdge's masks are drawn once a step for the whole block,
+one row a scene, as the JAX trainer splits one key a scene from the step's.
 
 `save_model` writes `model_best.msgpack` in the JAX package's format, so
 either package loads it. The resume state (`resume.pt`) is the port's own:
@@ -59,7 +63,7 @@ from ..etspace.facade import ETParams, calculate_parameters, et_forward
 from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_flax_msgpack,
                        write_flax_msgpack)
 from ..models import get_baseline
-from ..models.common import set_dropout_generator
+from ..models.common import draw_edge_keeps, set_dropout_generator, set_edge_keeps
 from ..ops.recon import fused_recon_metrics
 from ..utils.profiling import StepTimer, trace_annotation
 
@@ -214,11 +218,19 @@ class ETTorchTrainer:
             loss.backward()
         return loss.detach()
 
-    def loss_and_grads(self, obs, pred, valid, scene_info) -> torch.Tensor:
+    def loss_and_grads(self, obs, pred, valid, scene_info,
+                       edge_keeps: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """Step loss of one block or packed batch, as `_to_device` gives it
         (a 0-dim tensor on the device), with its gradient left in the
         parameters' `.grad` and the BN statistics moved once. The model must
         be in train mode.
+
+        A model with DropEdge gets its masks for the whole block, one
+        (B, R, T, N, N) mask a DropEdge layer, drawn here once a step from
+        `dropout_generator` (`common.draw_edge_keeps`) unless `edge_keeps`
+        brings them (on any device), and each chunk takes its rows: a
+        scene's draws and the generator's state after the step do not depend
+        on `micro_batches`.
 
         With `cfg.micro_batches` > 1 a sequenced block goes through in
         chunks. Every chunk starts from the pre-step BN statistics, and the
@@ -228,26 +240,35 @@ class ETTorchTrainer:
         """
         m = self.cfg.micro_batches
         self.optimizer.zero_grad(set_to_none=True)
-        if m <= 1 or self.collated:
-            return self._chunk_backward(obs, pred, valid, scene_info)
+        keeps = []
+        if self.model.training:
+            keeps = draw_edge_keeps(self.model, self.dropout_generator, *obs.shape[:2]) \
+                if edge_keeps is None else [k.to(self.device) for k in edge_keeps]
+        try:
+            if m <= 1 or self.collated:
+                set_edge_keeps(self.model, keeps)
+                return self._chunk_backward(obs, pred, valid, scene_info)
 
-        if obs.shape[0] % m:
-            raise ValueError("the block's scenes must be divisible by micro_batches")
-        stats = list(self.model.buffers())
-        pre = [b.clone() for b in stats]
-        acc = [torch.zeros_like(b) for b in stats]
-        total = wsum = 0.0
-        for chunk in zip(*(x.chunk(m) for x in (obs, pred, valid, scene_info))):
-            for b, p in zip(stats, pre):
-                b.copy_(p)
-            total = total + self._chunk_backward(*chunk)
-            n_valid = chunk[3].sum().to(self.dtype)
+            if obs.shape[0] % m:
+                raise ValueError("the block's scenes must be divisible by micro_batches")
+            stats = list(self.model.buffers())
+            pre = [b.clone() for b in stats]
+            acc = [torch.zeros_like(b) for b in stats]
+            total = wsum = 0.0
+            for i, chunk in enumerate(zip(*(x.chunk(m) for x in (obs, pred, valid, scene_info)))):
+                for b, p in zip(stats, pre):
+                    b.copy_(p)
+                set_edge_keeps(self.model, [k.chunk(m)[i] for k in keeps])
+                total = total + self._chunk_backward(*chunk)
+                n_valid = chunk[3].sum().to(self.dtype)
+                for a, b in zip(acc, stats):
+                    a.add_(b * n_valid)
+                wsum = wsum + n_valid
             for a, b in zip(acc, stats):
-                a.add_(b * n_valid)
-            wsum = wsum + n_valid
-        for a, b in zip(acc, stats):
-            b.copy_(a / torch.clamp_min(wsum, 1.0))
-        return total
+                b.copy_(a / torch.clamp_min(wsum, 1.0))
+            return total
+        finally:
+            set_edge_keeps(self.model, None)
 
     def apply_gradients(self):
         """One optimizer update from the gradients in `.grad`, in optax's

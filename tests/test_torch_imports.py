@@ -53,6 +53,8 @@ def test_port_imports_no_jax():
     "eigentrajectory_tpu_torch.models.pecnet",
     "eigentrajectory_tpu_torch.models.lbebm",
     "eigentrajectory_tpu_torch.models.agentformer",
+    "eigentrajectory_tpu_torch.models.dmrgcn",
+    "eigentrajectory_tpu_torch.models.graphtern",
     "eigentrajectory_tpu_torch.models.common",
     "eigentrajectory_tpu_torch.inference",
     "eigentrajectory_tpu_torch.data.batching",

@@ -6,8 +6,10 @@ reference; its `best_model` field holds the bytes of the reference's
 port's `import_state_dict` must give, bit for bit, what the JAX package's
 `import_state_dict` followed by `params_from_jax` gives: on that file, and
 for the other four converters on synthetic state dicts keyed as the JAX
-converters read them. The imported ET-SGCN evaluates as the JAX package
-does, and the CLI writes a checkpoint the port's trainer reads.
+converters read them. The same holds for ET-DMRGCN and ET-Graph-TERN on the
+eth snapshots (`dmrgcn-eth.pt`, `graphtern-eth.pt`). The imported models
+evaluate as the JAX package does, and the CLI writes a checkpoint the
+port's trainer reads.
 """
 import io
 import json
@@ -148,8 +150,75 @@ def test_the_other_converters_are_bitwise_the_jax_converters(baseline):
 
 def test_an_unknown_baseline_names_the_converters():
     with pytest.raises(NotImplementedError, match="agentformer"):
-        import_state_dict("dmrgcn", {})
-    assert sorted(interop.CONVERTERS) == ["agentformer", "lbebm", "pecnet", "sgcn", "stgcnn"]
+        import_state_dict("implicit", {})
+    assert sorted(interop.CONVERTERS) == ["agentformer", "dmrgcn", "graphtern", "lbebm",
+                                          "pecnet", "sgcn", "stgcnn"]
+
+
+# --- the eth snapshots of ET-DMRGCN and ET-Graph-TERN
+def eth_sd(baseline):
+    path = os.path.join(REPO, "benchmarks", "ref_resume", f"{baseline}-eth.pt")
+    blob = torch.load(path, map_location="cpu", weights_only=False)["best_model"]
+    return torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
+
+
+def eth_cfg(baseline):
+    return os.path.join(REPO, "configs", f"eigentrajectory-{baseline}-eth.json")
+
+
+@pytest.mark.parametrize("baseline,n_params", [("dmrgcn", 14156), ("graphtern", 17939)])
+def test_the_eth_snapshots_import_bitwise_as_the_jax_package_imports_them(baseline, n_params):
+    sd = eth_sd(baseline)
+    assert len(sd) == 54
+    got = import_state_dict(baseline, sd)
+    _assert_bitwise(got, _jax_path(baseline, sd))
+    model = get_baseline(baseline).make_model(ExpConfig(baseline=baseline))
+    model.load_state_dict(got[0])                    # strict: every parameter filled
+    assert sum(v.numel() for v in got[0].values()) == n_params
+    np.testing.assert_array_equal(got[1].basis_s.U_pred.numpy(),
+                                  sd["ET_s_descriptor.U_pred_trunc"].numpy())
+
+
+@pytest.mark.parametrize("baseline", ["dmrgcn", "graphtern"])
+def test_params_to_jax_gives_back_the_jax_init_tree(baseline):
+    """The JAX model's initial tree -> params_from_jax -> the port's model
+    (strict) -> params_to_jax: the same leaves, bit for bit (the PReLU
+    `alpha`s, the nested `tpcn/conv`, `res_conv`, `restconv`, `rescconv`,
+    `gta_0`), and no DropEdge leaf."""
+    from eigentrajectory_tpu.models import get_baseline as jax_baseline
+    from eigentrajectory_tpu_torch.interop import params_to_jax
+
+    jm = jax_baseline(baseline)
+    cfg = ExpConfig(baseline=baseline)
+    valid = np.ones(5, bool)
+    inputs = jm.prepare(jax.numpy.ones((cfg.k, 5)), jax.numpy.zeros((2, 5)),
+                        {"ped_valid": jax.numpy.asarray(valid)})
+    params = jm.make_model(cfg).init(jax.random.PRNGKey(3), *inputs, train=False)["params"]
+    sd = eth_sd(baseline)
+    et = {key: sd[key].numpy() for key in ET_KEYS}
+    tree = {"params": jax.tree_util.tree_map(np.asarray, params), "batch_stats": {},
+            "et": {"basis_m": {"U_obs": et["ET_m_descriptor.U_obs_trunc"],
+                               "U_pred": et["ET_m_descriptor.U_pred_trunc"]},
+                   "basis_s": {"U_obs": et["ET_s_descriptor.U_obs_trunc"],
+                               "U_pred": et["ET_s_descriptor.U_pred_trunc"]},
+                   "anchor_m": et["ET_m_anchor.C_anchor"], "anchor_s": et["ET_s_anchor.C_anchor"]}}
+    state, params_et = params_from_jax(tree)
+    model = get_baseline(baseline).make_model(cfg)
+    model.load_state_dict(state)
+    back = params_to_jax(model, params_et)
+
+    def leaves(t, prefix=()):
+        for key, value in t.items():
+            if isinstance(value, dict):
+                yield from leaves(value, prefix + (key,))
+            else:
+                yield "/".join(prefix + (key,)), value
+
+    want, got = dict(leaves(tree["params"])), dict(leaves(back["params"]))
+    assert sorted(got) == sorted(want) and back["batch_stats"] == {}
+    assert not any("drop_edge" in key for key in got)
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype and got[key].tobytes() == value.tobytes(), key
 
 
 # ------------------------------------------------- evaluation and the CLI
@@ -170,6 +239,22 @@ def test_the_imported_sgcn_evaluates_as_the_jax_package(reference_sd):
     for key in ("ADE", "FDE", "COL"):
         np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
     assert abs(got["TCC"] - want["TCC"]) < 1e-3 and 0.0 < got["ADE"] < got["FDE"]
+
+
+@pytest.mark.parametrize("baseline", ["dmrgcn", "graphtern"])
+def test_the_imported_eth_models_evaluate_as_the_jax_package(baseline):
+    sd = eth_sd(baseline)
+    splits = _splits()
+    jtr = ETJaxTrainer(jax_load_config(eth_cfg(baseline)), tag="imported", test_mode=True,
+                       datasets=splits)
+    jtr.params, jtr.batch_stats, jtr.et = jinterop.import_state_dict(baseline, sd)
+    ttr = ETTorchTrainer(load_config(eth_cfg(baseline)), tag="imported", datasets=splits,
+                         device="cpu")
+    ttr.load_state(*import_state_dict(baseline, sd))
+    want, got = jtr.test(eval_batch=16), ttr.test(eval_batch=16)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
+    assert 0.0 < got["ADE"] < got["FDE"]
 
 
 def test_the_cli_writes_a_checkpoint_the_trainer_reads(tmp_path, capsys):
@@ -196,3 +281,28 @@ def test_the_cli_writes_a_checkpoint_the_trainer_reads(tmp_path, capsys):
     np.testing.assert_array_equal(tr.et.anchor_s.numpy(),
                                   torch.load(io.BytesIO(best_model_bytes()), weights_only=True)
                                   ["ET_s_anchor.C_anchor"].numpy())
+
+
+@pytest.mark.parametrize("baseline", ["dmrgcn", "graphtern"])
+def test_the_cli_imports_the_eth_snapshots(tmp_path, capsys, baseline):
+    from tests.test_torch_train import _write_split
+
+    rng = np.random.default_rng(3)
+    for split in ("train", "val", "test"):
+        _write_split(str(tmp_path / "data" / "toy" / split), rng)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({
+        "dataset_dir": str(tmp_path / "data"), "checkpoint_dir": str(tmp_path / "ckpt"),
+        "dataset": "toy", "baseline": baseline, "k": 6, "num_samples": 20}))
+    pth = tmp_path / "model_best.pth"
+    path = os.path.join(REPO, "benchmarks", "ref_resume", f"{baseline}-eth.pt")
+    pth.write_bytes(torch.load(path, map_location="cpu", weights_only=False)["best_model"])
+    results = interop.main(["--cfg", str(cfg), "--pth", str(pth), "--tag", "imported",
+                            "--device", "cpu", "--test"])
+    assert "Scene: toy ADE: " in capsys.readouterr().out
+    tr = ETTorchTrainer(load_config(str(cfg)), tag="imported", device="cpu")
+    tr.load_model()
+    assert tr.test() == results
+    state, _ = import_state_dict(baseline, eth_sd(baseline))
+    for name, value in tr.model.state_dict().items():
+        assert torch.equal(value, state[name]), name

@@ -1,4 +1,6 @@
-"""Port vs JAX package: the sequenced training path of ET-STGCNN and ET-SGCN.
+"""Port vs JAX package: the sequenced training path of ET-STGCNN and ET-SGCN,
+and DropEdge's stream on ET-DMRGCN (micro_batches, bitwise resume, masks
+that are no checkpoint leaves).
 
 Both trainers get the same synthetic splits; the JAX trainer fits the
 descriptor and writes a checkpoint, the port loads it, so both start from
@@ -25,7 +27,8 @@ from eigentrajectory_tpu_torch import trainval
 from eigentrajectory_tpu_torch.config import ExpConfig
 from eigentrajectory_tpu_torch.data.batching import pad_scenes
 from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
-from eigentrajectory_tpu_torch.interop import jax_param_paths
+from eigentrajectory_tpu_torch.interop import jax_param_paths, read_flax_msgpack
+from eigentrajectory_tpu_torch.models.common import draw_edge_keeps
 from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
 BATCH = 4
@@ -475,6 +478,105 @@ def test_the_seed_makes_the_initial_weights_and_leaves_the_global_stream(tmp_pat
     c = _torch_trainer("stgcnn", tmp_path, seed=1)
     assert all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
     assert not torch.equal(a.model.tpcnn_0.weight, c.model.tpcnn_0.weight)
+
+
+# ------------------------------------------------- DropEdge's stream (ET-DMRGCN)
+def _dmrgcn_pair(tmp_path, m):
+    """Two ET-DMRGCN trainers, micro_batches 1 and `m`, with the same
+    weights, ET parameters and generator states, on a block of 8 rows whose
+    last 3 are padding scenes."""
+    splits = _splits()
+    whole = _torch_trainer("dmrgcn", tmp_path, splits=splits, batch_size=8)
+    whole.init_descriptor()
+    split = _torch_trainer("dmrgcn", tmp_path, splits=splits, batch_size=8, micro_batches=m)
+    split.model.load_state_dict(whole.model.state_dict())
+    split.et = whole.et
+    batch = pad_scenes(whole.data_train, [0, 1, 2, 3, 4], whole.n_max, 8)
+    return whole, split, batch
+
+
+def test_drop_edge_micro_batches_equal_the_whole_block(tmp_path):
+    """DropEdge on: micro_batches 2 gives the loss and gradients of 1 (the
+    chunks take their rows of the masks drawn for the whole block; f32 sums
+    in another order), and leaves the dropout generator in the same state.
+    Torch's global stream is neither read nor moved."""
+    whole, split, batch = _dmrgcn_pair(tmp_path, 2)
+    global_state = torch.get_rng_state()
+    results = []
+    for tr in (whole, split):
+        tr.model.train()
+        loss = tr.loss_and_grads(*_torch_args(batch))
+        tr.model.eval()
+        results.append((float(loss), {n: p.grad for n, p in tr.model.named_parameters()}))
+    assert torch.equal(torch.get_rng_state(), global_state)
+    (l1, g1), (l2, g2) = results
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    for name, g in g1.items():
+        # 1e-6 relative; an entry near 0 is held to 1e-6 of its tensor's scale
+        np.testing.assert_allclose(g2[name].numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(g.abs().max()), err_msg=name)
+    start = torch.Generator().manual_seed(whole.cfg.seed).get_state()
+    assert not torch.equal(whole.dropout_generator.get_state(), start)
+    assert torch.equal(whole.dropout_generator.get_state(), split.dropout_generator.get_state())
+    # DropEdge was on: the eval-mode loss (no edges dropped) is another one.
+    with torch.no_grad():
+        no_drop = whole._chunk_loss(*_torch_args(batch))
+    assert abs(float(no_drop) - l1) > 1e-6 * abs(l1)
+
+
+def test_drop_edge_masks_come_from_the_step_and_can_be_handed_in(tmp_path):
+    """A step draws one (B, R, T, N, N) mask a DropEdge layer from the
+    trainer's generator; masks handed in give the same step, and none is
+    left on the model after it (a train-mode forward outside a step
+    raises)."""
+    whole, _, batch = _dmrgcn_pair(tmp_path, 2)
+    args = _torch_args(batch)
+    start = whole.dropout_generator.get_state()
+    keeps = draw_edge_keeps(whole.model, whole.dropout_generator, *args[0].shape[:2])
+    assert [tuple(k.shape) for k in keeps] == [(8, 5, 8, whole.n_max, whole.n_max)] * 2
+    whole.dropout_generator.set_state(start)
+    whole.model.train()
+    drawn = float(whole.loss_and_grads(*args))
+    handed = float(whole.loss_and_grads(*args, edge_keeps=keeps))
+    assert drawn == handed
+    assert all(m.keep is None for m in whole.model.modules() if hasattr(m, "keep"))
+    with pytest.raises(RuntimeError, match="kept-edge mask"):
+        whole._chunk_loss(*args)
+    whole.model.eval()
+
+
+def test_drop_edge_masks_are_neither_buffers_nor_checkpoint_leaves(tmp_path):
+    tr = _torch_trainer("dmrgcn", tmp_path, tag="leaves")
+    tr.init_descriptor()
+    tr.fit(num_epochs=1, verbose=False, checkpoint_every=1)
+    assert list(tr.model.buffers()) == []
+    tree = read_flax_msgpack(os.path.join(tr.checkpoint_dir, "model_best.msgpack"))
+    assert tree["batch_stats"] == {}
+    leaves = set(traverse_util.flatten_dict(tree["params"], sep="/"))
+    assert leaves == set(jax_param_paths(tr.model).values())
+    assert not any("drop_edge" in leaf or "keep" in leaf for leaf in leaves)
+    state = torch.load(os.path.join(tr.checkpoint_dir, "resume.pt"), weights_only=True)
+    assert set(state["model"]) == set(tr.model.state_dict())
+    assert not any("keep" in key for key in state["model"])
+
+
+def test_drop_edge_fit_resumes_bitwise(tmp_path):
+    """fit(1) + resume.pt + fit(2) equals fit(2) bit for bit on the CPU: the
+    dropout generator's state travels in resume.pt."""
+    splits = _splits()
+    straight = _torch_trainer("dmrgcn", tmp_path, tag="straight", splits=splits)
+    straight.init_descriptor()
+    straight.fit(num_epochs=2, verbose=False)
+    first = _torch_trainer("dmrgcn", tmp_path, tag="resumed", splits=splits)
+    first.init_descriptor()
+    first.fit(num_epochs=1, verbose=False, checkpoint_every=1)
+    second = _torch_trainer("dmrgcn", tmp_path, tag="resumed", splits=splits)
+    second.fit(num_epochs=2, verbose=False, resume=True)
+    assert len(second.epoch_timer.durations) == 1 and second.log == straight.log
+    want = straight.model.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in second.model.state_dict().items())
+    assert torch.equal(second.dropout_generator.get_state(),
+                       straight.dropout_generator.get_state())
 
 
 # ------------------------------------------------------------------ CLI
