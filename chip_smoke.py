@@ -6,7 +6,7 @@ Run from the root of the repository on a machine with an NVIDIA H100 and the
 CUDA toolkit. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's two CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
+2. builds the port's three CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
    (one nvcc each, started together) and prints their ptxas register lines;
 3. holds each kernel against its plain PyTorch version on the card
    (atol = rtol = 1e-4: the sums run in another order):
@@ -121,13 +121,43 @@ CUDA toolkit. It
    exactly), the train step by parts; ET-Graph-TERN one epoch and `test()`.
    A failed card-vs-CPU check of ET-DMRGCN prints how many adjacency entries
    of the case lie within 4 ulps of a band edge;
-11. prints a JSON line with both kernels' numbers, then as its last line
-   {"ok": true, "device": {...}}.
+11. groups and zones: drives ET-GP-Graph-STGCNN, ET-GP-Graph-SGCN and
+   ET-Social-Implicit (configurations eigentrajectory-<model>-hotel.json at
+   their published widths, micro_batches 4, 8 and 1) from the seed's
+   weights on the sequenced splits: `init_descriptor()` card vs CPU; GP-Graph's
+   th set midway between two adjacent pair distances at the 0.3 quantile of
+   the test block's (groups form, no distance within rounding of th);
+   Implicit's global_w and local_w drawn in [0.5, 1.5] (the init's 0 gives
+   the cells' convs no gradient); one step card vs CPU f32 vs f64 on the
+   epoch's first block and on a block of dense scenes (2-57 pedestrians a
+   scene; GP-Graph-SGCN on their first 32 rows), `group_cnn`'s gradient NaN
+   on every run, Implicit's cell convs learning in the zones used and in no
+   other; `fit(1)`, which must launch `group_relabel` once a chunk and
+   a val block; th set again after training; `test()` of one block of
+   EVAL_BATCH x N_MAX slots and of the dense block, card vs CPU within 1e-4,
+   with the group counts (GP-Graph: pedestrians, groups, groups of two or
+   more, singletons) or the zone counts (Implicit: two or more used) of the
+   block; `predict()` (a), (b), (c) as in step 10 (GP-Graph-SGCN's request
+   (b) checked on its first 64 scenes, each a row of its own), each GP-Graph request
+   launching `group_relabel` once; peak memory and host-clock medians of `test()` and
+   `predict()` (b); for ET-GP-Graph-STGCNN `fit(1)` + `resume.pt` + `fit(2)`
+   against `fit(2)` within 1e-4 relative (the card's reductions are not
+   bitwise from run to run, and the adjacency amplifies them); ET-DMRGCN (eth weights) `test()`
+   and a step with DropEdge on, on the dense block, card vs CPU. Then
+   `group_relabel` is held bit for bit against its plain version on the
+   masks of the main path at (320, 57), (301, 128) and request (c)'s
+   (1, 256), and on random masks at N = 31, 32, 33 and 1,025, and timed at
+   (320, 57) and (301, 128). A failed card-vs-CPU check of these models
+   prints the count of pair distances within 4 ulps of th (or of |c_0|
+   within 4 ulps of a bin edge) in the case;
+12. prints a JSON line with the three kernels' numbers, then as its last
+   line {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
-(ET-PECNet's, ET-AgentFormer's, ET-DMRGCN's and ET-Graph-TERN's included,
-with the span `eval.col_gather` of the packed eval's scene gather) and one
-training epoch of ET-STGCNN, ET-PECNet, ET-AgentFormer and ET-DMRGCN with
+(ET-PECNet's, ET-AgentFormer's, ET-DMRGCN's, ET-Graph-TERN's and step 11's
+included, with the span `eval.col_gather` of the packed eval's scene gather
+and `gpgraph.group_relabel`) and one training epoch of ET-STGCNN, ET-PECNet,
+ET-AgentFormer, ET-DMRGCN and the three models of step 11 with
 torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
 device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2, then
 builds the sources of the same names in OLD_CSRC_DIR (another version of the
@@ -136,6 +166,7 @@ turns (old, new, new, old) by the three methods of step 6, prints the times
 and stops. Any failure raises and the exit code is not 0; without a
 CUDA device the script fails before it prints a result.
 """
+import dataclasses
 import json
 import math
 import os
@@ -182,9 +213,14 @@ AGENTFORMER_CFG, AF_BUCKET, AF_EPOCHS = "eigentrajectory-agentformer-zara2.json"
 # Step 10: ET-DMRGCN and ET-Graph-TERN (eth configurations, the reference's
 # eth weights) on the sequenced splits; ET-DMRGCN trains MULTIREL_EPOCHS.
 MULTIREL_MODELS, MULTIREL_EPOCHS = ("dmrgcn", "graphtern"), 2
+# Step 11: ET-GP-Graph-STGCNN, ET-GP-Graph-SGCN and ET-Social-Implicit (hotel
+# configurations) from the seeded init on the sequenced splits.
+GROUP_ZONE_MODELS = ("gpgraphstgcnn", "gpgraphsgcn", "implicit")
+GROUP_ZONE_RUNS = 10                   # host-clock runs of its test() and predict() (b)
 # Each kernel's span in the trainer and the predictor, and a part of its
 # name in the profiler's trace.
-KERNEL_SPANS = {"eval.recon_metrics": "recon_metrics_kernel",
+KERNEL_SPANS = {"gpgraph.group_relabel": "group_relabel_kernel",
+                "eval.recon_metrics": "recon_metrics_kernel",
                 "serve.reconstruct": "reconstruct_kernel"}
 
 
@@ -524,21 +560,22 @@ def _walkers(n, seed):
     return traj[:, :8].astype(np.float32)
 
 
-def _host_times(fn, card, label, n_traj):
-    """Median and p80 of 50 host-clock runs of fn (ending in a synchronize)
-    after 5 warm-up runs; printed with the card; returns the median in s."""
+def _host_times(fn, card, label, n_traj, runs=50):
+    """Median and p80 of `runs` host-clock runs of fn (ending in a
+    synchronize) after 5 warm-up runs; printed with the card; returns the
+    median in s."""
     import torch
 
     for _ in range(5):
         fn()
     walls = []
-    for _ in range(50):
+    for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     walls.sort()
-    median, p80 = walls[len(walls) // 2], walls[39]   # 10 samples above p80
+    median, p80 = walls[len(walls) // 2], walls[runs * 4 // 5 - 1]   # a fifth above p80
     print(f"[{card}] {label} wall over {len(walls)} runs: median {median * 1e3:.3f} ms, "
           f"p80 {p80 * 1e3:.3f} ms, min {walls[0] * 1e3:.3f} ms; "
           f"{n_traj / median:.1f} trajectories/s at the median, {n_traj / p80:.1f} at p80",
@@ -573,7 +610,7 @@ def _profile(label, fn, card, wall_s, out_dir):
     # twin measures the range's extent on the device timeline).
     spans = {}
     for e in prof.events():
-        if e.name.startswith(("eval.", "serve.")) and e.device_type == DeviceType.CPU:
+        if e.name.startswith(("eval.", "serve.", "gpgraph.")) and e.device_type == DeviceType.CPU:
             spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total
     attributed = {}
     for span, kernel in KERNEL_SPANS.items():
@@ -843,6 +880,7 @@ def _check_one_step(name, tr, batch, label, train_mode=True, edge_keeps=None):
     model without BN (the runs draw from their own generators).
     `edge_keeps`, DropEdge's masks for the block, drawn once on the CPU,
     gives the runs the same draws (none of them reads its own generator).
+    Returns the card's gradients by parameter name (float64, on the CPU).
 
     1. The predictor's inputs, the ET coefficients and origins that each
        device's projection gives: the card's within the CPU f32's distance
@@ -896,12 +934,22 @@ def _check_one_step(name, tr, batch, label, train_mode=True, edge_keeps=None):
             raise AssertionError(f"{name} {label}: step loss card {l_card} vs {what} {other}")
     if set(g_card) != set(g_64) or not g_card:
         raise AssertionError(f"{name} {label}: gradients of other parameters on the card")
+    # A gradient that is NaN in the exact run (GP-Graph's group_cnn: the
+    # norm's gradient at a zero difference, which the optimizer zeroes) must
+    # be NaN at the same entries in every run.
+    nan = {n for n, ref in g_64.items() if torch.isnan(ref).any()}
+    for n in nan:
+        where = torch.isnan(g_64[n])
+        if not all(torch.equal(torch.isnan(g[n]), where) for g in (g_card, g_32, g_own)):
+            raise AssertionError(f"{name} {label}: gradient of {n} NaN at other entries")
     # A tensor whose true gradient is 0 (a conv bias in front of a BatchNorm)
     # holds rounding noise of the size of the gradients around it: its scale
     # is at least a thousandth of the largest entry of any gradient tensor.
-    floor = 1e-3 * max(float(ref.abs().max()) for ref in g_64.values())
+    floor = 1e-3 * max(float(ref.abs().max()) for n, ref in g_64.items() if n not in nan)
     worst, worst_own, spread, past = (0.0, 0.0, ""), (0.0, 0.0, 0.0, ""), (0.0, ""), 0
     for n, ref in g_64.items():
+        if n in nan:
+            continue
         top = max(float(ref.abs().max()), floor)
         e_card = float((g_card[n] - ref).abs().max())
         e_cpu = float((g_32[n] - ref).abs().max())
@@ -930,7 +978,8 @@ def _check_one_step(name, tr, batch, label, train_mode=True, edge_keeps=None):
         what = f"{int(batch.scene_valid.sum())} real scenes of {len(batch.scene_valid)}"
     print(f"{name} one step, {label} ({what}): predictor inputs |card - CPU f64| {in_card:.2e} "
           f"of scale (CPU f32: {in_32:.2e}); from the card's inputs: loss card {l_card:.8f}, "
-          f"CPU f32 {l_32:.8f}, CPU f64 {l_64:.8f}; {len(g_64)} gradient tensors, worst "
+          f"CPU f32 {l_32:.8f}, CPU f64 {l_64:.8f}; {len(g_64)} gradient tensors ({len(nan)} NaN on all "
+          f"runs), worst "
           f"|card - f64| / the tensor's scale {worst[0]:.2e} (CPU f32: {worst[1]:.2e}) at "
           f"{worst[2]}; {len(s_64)} BN statistics, max |card - f64| {stat_gap:.2e}. "
           f"Rounding the inputs: f64 on the CPU's own f64 inputs, loss {l_own:.8f}, gradients "
@@ -938,6 +987,7 @@ def _check_one_step(name, tr, batch, label, train_mode=True, edge_keeps=None):
           f"tensors past 1e-4); the card's worst distance from it {worst_own[0]:.2e} at "
           f"{worst_own[3]}, of which the inputs' rounding {worst_own[1]:.2e} and the card's "
           f"arithmetic {worst_own[2]:.2e}", flush=True)
+    return g_card
 
 
 def _loss_recon_ms(tr, batch, iters=20):
@@ -1776,6 +1826,518 @@ def _multirelational_phase(card, recon, seq_data, profile_dir):
     return recon_metrics_launches, reconstruct_launches
 
 
+def _relabel_bound_ms(merge, valid):
+    """(ms, "bytes" or "operations") for the group relabel on these inputs:
+    the strictly lower triangle of merge (the rest is zero by contract, and
+    neither the function nor the kernel reads it) and valid read once,
+    ranks and n_groups written once; per scene N(N-1)/2 steps of the chain
+    (a read of one merge bit), N compares and writes a merge that fires,
+    and the 2N-long presence and prefix pass, counted against the f32
+    rate."""
+    b, n = valid.shape
+    fired = int(merge.sum())
+    return _bound(b * n * (n - 1) // 2 + valid.numel(), 4 * b * n + 4 * b,
+                  b * n * (n - 1) // 2 + fired * n + b * 4 * n)
+
+
+def _relabel_times(group, card, merge, valid, plain_iters):
+    """The relabel's row of measurements at one shape: device ms by CUDA
+    graph replay of GRAPH_LAUNCHES_EVAL launches on one input set (the
+    inputs, ~1 MB at (320, 57), stay in L2 whatever the method: the kernel
+    is a serial chain, not a stream of bytes), wrapper-loop ms, the plain
+    version's ms on the card, the bound and the serial depth."""
+    b, n = valid.shape
+    args = [(merge, valid)]
+    ms = _replay_ms(_capture(group.group_ranks, args, GRAPH_LAUNCHES_EVAL), GRAPH_LAUNCHES_EVAL)
+    call_ms = _call_ms(lambda: group.group_ranks(merge, valid), 50)
+    plain_ms = _call_ms(lambda: group.group_ranks_plain(merge, valid), plain_iters)
+    bound_ms, bound_by = _relabel_bound_ms(merge, valid)
+    depth = n * (n - 1) // 2
+    print(f"[{card}] group_relabel B={b} N={n}: device {ms:.4f} ms (graph replay), wrapper "
+          f"loop {call_ms:.4f} ms a call; plain version on the card {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.2%} of it reached; serial depth "
+          f"{depth} steps a scene, {int(merge.sum())} merges fired in the block", flush=True)
+    return dict(ms=ms, kernel_ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, serial_depth=depth, shape=[b, n])
+
+
+def _relabel_check(group, merge, valid, label):
+    """The kernel on the card against its plain version on the same inputs,
+    bit for bit (ranks and group counts are integers); returns max |card -
+    plain| over both outputs. Not a main-path launch: the caller keeps
+    these out of the count."""
+    import torch
+
+    got = group.group_ranks(merge, valid)
+    torch.cuda.synchronize()
+    want = group.group_ranks_plain(merge.cpu(), valid.cpu())
+    err = 0
+    for a, w, what in zip(got, want, ("ranks", "n_groups")):
+        if a.dtype != torch.int32 or a.shape != w.shape:
+            raise AssertionError(f"group_relabel {label}: {what} {a.dtype} {tuple(a.shape)}")
+        gap = (a.cpu().long() - w.long()).abs()
+        err = max(err, int(gap.max()) if gap.numel() else 0)
+        if gap.any():
+            raise AssertionError(f"group_relabel {label}: {what} differ from the plain version "
+                                 f"at {int((gap > 0).sum())} entries, by up to {err}")
+    b, n = valid.shape
+    print(f"group_relabel {label} (B={b}, N={n}, {int(merge.sum())} merges, "
+          f"{int(want[1].sum())} groups): bit-equal to its plain version, max |card - plain| "
+          f"{err}", flush=True)
+    return float(err)
+
+
+@contextmanager
+def _noting_relabels(gpgraph_common):
+    """Within the block, note the (merge, valid, th, dist_mat) of every call
+    of the relabel that the GP-Graph models make."""
+    seen = []
+    find = gpgraph_common.find_group_indices
+
+    def noting(dist_mat, th, valid):
+        seen.append((gpgraph_common.merge_mask(dist_mat, th, valid).contiguous(),
+                     valid.contiguous(), float(th), dist_mat))
+        return find(dist_mat, th, valid)
+
+    gpgraph_common.find_group_indices = noting
+    try:
+        yield seen
+    finally:
+        gpgraph_common.find_group_indices = find
+
+
+def _group_counts(merge, valid):
+    """Stream by stream: valid pedestrians (streams 1 and 3), groups (the
+    pooled stream 2's slots), groups of two or more, singletons."""
+    from eigentrajectory_tpu_torch.ops import group
+
+    ranks, n_groups = group.group_ranks_plain(merge.cpu(), valid.cpu())
+    v = valid.cpu()
+    real = int((n_groups - (~v).sum(dim=1)).sum())
+    sizes = [_group_sizes(r[m]) for r, m in zip(ranks, v) if m.any()]
+    multi = sum(int((s >= 2).sum()) for s in sizes)
+    single = sum(int((s == 1).sum()) for s in sizes)
+    return {"peds (streams 1, 3)": int(v.sum()), "groups (stream 2)": real,
+            "groups of 2+": multi, "singletons": single}
+
+
+def _group_sizes(ranks):
+    import torch
+
+    counts = torch.bincount(ranks.long())
+    return counts[counts > 0]
+
+
+def _zone_counts(tr, batch_or_args):
+    """Implicit: pedestrians in each zone over the valid slots of a block."""
+    import torch
+    from eigentrajectory_tpu_torch.etspace.facade import et_forward
+    from eigentrajectory_tpu_torch.models import implicit
+
+    obs, _, valid, scene_info = batch_or_args
+    seen = []
+
+    def fn(c_obs, obs_ori, aux):
+        v, ok = implicit.prepare(c_obs, obs_ori, aux)
+        seen.append((implicit.zones(v), ok, v[:, 0, 0, :]))
+        b, _, n = c_obs.shape
+        return c_obs.new_zeros((b, tr.cfg.k, n, tr.cfg.num_samples))
+
+    with torch.no_grad():
+        et_forward(tr.et, fn, obs, valid, tr.cfg.static_dist,
+                   aux=tr.make_aux(valid, scene_info), return_coefficients=True)
+    zone, ok, c0 = seen[0]
+    return [int(((zone == i) & ok).sum()) for i in range(4)], c0[ok]
+
+
+def _near_knife_edges(name, tr_cpu, batch_or_args):
+    """The count of decisions within 4 ulps of their edge on a CPU run of
+    this case: GP-Graph pair distances against th, Implicit |c_0| against
+    the bin edges."""
+    import torch
+    from eigentrajectory_tpu_torch.models import gpgraph_common, implicit
+
+    def ulps(x, edges):
+        e = torch.tensor(edges, dtype=torch.float32)
+        step = (torch.nextafter(e, torch.tensor(float("inf"))) - e)
+        return int(((x.float()[..., None] - e).abs() <= 4 * step).sum())
+
+    if name == "implicit":
+        _, c0 = _zone_counts(tr_cpu, batch_or_args)
+        return f"{ulps(c0.abs(), implicit.BINS[1:])} |c_0| within 4 ulps of a bin edge"
+    with _noting_relabels(gpgraph_common) as seen, torch.no_grad():
+        obs, pred, valid, scene_info = batch_or_args
+        tr_cpu._chunk_loss(obs, pred, valid, scene_info)
+    count = 0
+    for merge, valid, th, dist in seen:
+        pairs = torch.ones_like(merge).tril(-1) & valid[:, :, None] & valid[:, None, :]
+        count += ulps(dist[pairs], [th])
+    return f"{count} pair distances within 4 ulps of th"
+
+
+@contextmanager
+def _knife_edges_on_failure(name, tr_cpu, args):
+    """Re-raise a failed card-vs-CPU check of a GP-Graph or Implicit model
+    with the count of its decisions within 4 ulps of their edge."""
+    try:
+        yield
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n[{name}: {_near_knife_edges(name, tr_cpu, args)} in this "
+                             f"case]") from e
+
+
+def _draw_cell_scalars(model):
+    """Implicit: draw every cell's global_w and local_w in [0.5, 1.5] from a
+    seed. The init's 0 leaves every conv of the cells a zero gradient, which
+    a step check would pass whatever the backward did."""
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith((".global_w", ".local_w")):
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen))
+
+
+def _assert_cells_learn(name, label, grads, counts):
+    """Implicit: the convs of the cells of the zones the block uses, and of
+    no other, got a nonzero gradient on the card."""
+    used = {i for i, c in enumerate(counts) if c}
+    for conv in ("feat", "tpcnn", "ped.feat.conv", "ped.tpcnn.conv"):
+        learning = {i for i in range(len(counts))
+                    if float(grads[f"cell_{i}.{conv}.weight"].abs().max()) > 0}
+        if learning != used or not used:
+            raise AssertionError(f"{name} {label}: cells whose {conv} learns {learning}, zones "
+                                 f"used {used} ({counts} pedestrians)")
+    print(f"{name} {label}: pedestrians by zone {counts}; the convs of cells {sorted(used)} "
+          f"have nonzero gradients, those of the others 0", flush=True)
+
+
+def _set_th(tr, tr_cpu, splits, card):
+    """Set GP-Graph's th on both trainers to the midpoint between two
+    adjacent distinct pair distances at the 0.3 quantile of the test
+    block's, on the CPU: groups form, and no distance lies within rounding
+    of th."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.data.batching import SceneBatcher
+    from eigentrajectory_tpu_torch.etspace.facade import et_forward
+
+    seen = []
+    model = tr_cpu.model
+
+    def fn(c_obs, obs_ori, aux):
+        v_abs, _, valid = tr_cpu.baseline.prepare(c_obs, obs_ori, aux)
+        seen.append((model.group_gen.distances(v_abs, valid), valid))
+        b, _, n = c_obs.shape
+        return c_obs.new_zeros((b, tr_cpu.cfg.k, n, tr_cpu.cfg.num_samples))
+
+    batch = next(iter(SceneBatcher(splits[2], EVAL_BATCH, False, N_MAX)))
+    obs, _, valid, scene_valid = tr_cpu._to_device(batch)
+    with torch.no_grad():
+        et_forward(tr_cpu.et, fn, obs, valid, tr_cpu.cfg.static_dist,
+                   aux=tr_cpu.make_aux(valid, scene_valid), return_coefficients=True)
+    dist, ok = seen[0]
+    pairs = torch.ones_like(dist, dtype=torch.bool).tril(-1) & ok[:, :, None] & ok[:, None, :]
+    values = np.unique(dist[pairs].numpy())
+    i = int(0.3 * (len(values) - 1))
+    th = float((values[i] + values[i + 1]) / 2)
+    for t in (tr, tr_cpu):
+        with torch.no_grad():
+            t.model.group_gen.th.fill_(th)
+    print(f"[{card}] {tr.cfg.baseline}: th set to {th:.6f}, between the pair distances "
+          f"{values[i]:.6f} and {values[i + 1]:.6f} of the test block ({len(values)} distinct)",
+          flush=True)
+    return th
+
+
+def _dense_splits():
+    """Dense scenes, 2 to N_MAX pedestrians a scene (~30 on average): a
+    train split of one block of TRAIN_BATCH scenes and a test split of 128
+    scenes, one padded eval block."""
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+
+    train = make_synthetic_data(n_scenes=TRAIN_BATCH, max_peds=N_MAX, seed=21)
+    test = make_synthetic_data(n_scenes=128, max_peds=N_MAX, seed=22)
+    return train, test
+
+
+def _lap(card, name, part, t0):
+    """Print the seconds since t0 of one part of step 11; returns now."""
+    now = time.perf_counter()
+    print(f"[{card}] step 11 {name}: {part} {now - t0:.1f} s", flush=True)
+    return now
+
+
+def _groups_zones_phase(card, recon, group, seq_data, profile_dir):
+    """Step 11: ET-GP-Graph-STGCNN, ET-GP-Graph-SGCN and ET-Social-Implicit
+    (hotel configurations at their published widths) from the port's seeded
+    init on the sequenced splits of steps 4 and 7, and a block of dense
+    scenes for them and ET-DMRGCN. Returns (launches of fused_recon_metrics,
+    of fused_reconstruct, of group_relabel on the paths, the relabel's
+    times at (320, 57) and (301, 128))."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data.batching import SceneBatcher
+    from eigentrajectory_tpu_torch.interop import import_checkpoint_to_trainer
+    from eigentrajectory_tpu_torch.models import gpgraph_common
+    from eigentrajectory_tpu_torch.models.common import draw_edge_keeps
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    t_step = time.perf_counter()
+    splits = _sequenced_splits(seq_data)
+    train, val, test = splits
+    dense_train, dense_test = _dense_splits()
+    dense_splits = (dense_train, val, dense_test)
+    dense_block = next(iter(SceneBatcher(dense_train, TRAIN_BATCH, True, N_MAX, seed=1)))
+    n_peds = int(test.num_peds_in_seq.sum())
+    test_blocks = -(-test.num_scenes // EVAL_BATCH)
+    whole = (test.obs_traj, np.repeat(np.arange(N_SCENES), test.num_peds_in_seq))
+    requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
+                "(b)": whole,
+                "(c)": (_walkers(150, seed=13), np.zeros(150, np.int64))}
+    print(f"step 11: dense block of {dense_train.num_scenes} train scenes "
+          f"({int(dense_train.num_peds_in_seq.sum())} pedestrians, up to {N_MAX} a scene) and "
+          f"{dense_test.num_scenes} test scenes ({int(dense_test.num_peds_in_seq.sum())})",
+          flush=True)
+    launches = {"recon_metrics": 0, "reconstruct": 0, "group": 0}
+    noted = {}                                    # relabel inputs of the main path by shape
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for name in GROUP_ZONE_MODELS:
+            t_model = t_part = time.perf_counter()
+            cfg = load_config(os.path.join(REPO, "configs", f"eigentrajectory-{name}-hotel.json"),
+                              checkpoint_dir=ckpt_dir, n_max_peds=N_MAX)
+            if cfg.batch_size != TRAIN_BATCH:
+                raise AssertionError(f"{name}: the training cell is {TRAIN_BATCH} x {N_MAX} slots")
+            # --- 1. descriptor, then a step on the first and on a dense block ---
+            tr = ETTorchTrainer(cfg, tag="smoke", datasets=splits)
+            tr_cpu = ETTorchTrainer(cfg, tag="smoke-cpu", datasets=splits, device="cpu")
+            init = _check_descriptor(name, card, tr, tr_cpu)
+            if name == "implicit":
+                _draw_cell_scalars(tr.model)
+            tr_cpu.model.load_state_dict(tr.model.state_dict())
+            tr_cpu._set_et(tr.et)
+            if name != "implicit":
+                _set_th(tr, tr_cpu, splits, card)
+            blocks = list(SceneBatcher(train, cfg.batch_size, True, N_MAX, seed=cfg.seed))
+            # GP-Graph-SGCN's step is checked on the first 32 rows of a block
+            # (micro_batches 8 divides them): its three CPU steps on a whole
+            # block took 43-45 s on the host of an NVIDIA H100 80GB HBM3
+            # (PERF.md §6).
+            rows = 32 if name == "gpgraphsgcn" else cfg.batch_size
+            for batch, label in ((blocks[0], "first block"), (dense_block, "dense block")):
+                batch = dataclasses.replace(batch, **{f.name: getattr(batch, f.name)[:rows]
+                                                      for f in dataclasses.fields(batch)})
+                label = f"{label} ({rows} of its rows)" if rows < cfg.batch_size else label
+                args = tr_cpu._to_device(batch)
+                with _knife_edges_on_failure(name, tr_cpu, args):
+                    grads = _check_one_step(name, tr, batch, f"{label}, micro_batches "
+                                            f"{cfg.micro_batches}")
+                if name == "implicit":
+                    _assert_cells_learn(name, label, grads, _zone_counts(tr_cpu, args)[0])
+                t_part = _lap(card, name, f"descriptor and the step on the {label}", t_part)
+
+            # --- 2. fit(1), th kept; the checkpoint the checks below read ---
+            group.LAUNCHES = recon.LAUNCHES = 0
+            with _synced_steps():
+                tr.fit(num_epochs=1, checkpoint_every=1)
+            torch.cuda.synchronize()
+            n_val = -(-val.num_scenes // cfg.batch_size)
+            want = len(blocks) * cfg.micro_batches + n_val if name != "implicit" else 0
+            if group.LAUNCHES != want:
+                raise AssertionError(f"{name}: fit(1) launched group_relabel {group.LAUNCHES} "
+                                     f"times, expected {want}")
+            launches["group"] += group.LAUNCHES
+            if not all(math.isfinite(v) for v in tr.log["train_loss"] + tr.log["val_loss"]):
+                raise AssertionError(f"{name}: losses {tr.log}")
+            steps = tr.step_timer.durations
+            print(f"[{card}] {name} fit(1) at {cfg.batch_size}x{N_MAX} slots, micro_batches "
+                  f"{cfg.micro_batches}: train loss {tr.log['train_loss']}, val loss "
+                  f"{tr.log['val_loss']}; train step median {_median(steps) * 1e3:.3f} ms, min "
+                  f"{min(steps) * 1e3:.3f} ms, max {max(steps) * 1e3:.3f} ms over {len(steps)} "
+                  f"steps (the first included; host clock, a synchronize at each end), epoch "
+                  f"{tr.epoch_timer.durations[0]:.3f} s, "
+                  f"{int(train.num_peds_in_seq.sum()) / tr.epoch_timer.durations[0]:.1f} trained "
+                  f"trajectories/s; group_relabel launches {group.LAUNCHES}; init_descriptor() "
+                  f"{init['total_s']:.3f} s", flush=True)
+            if name != "implicit":            # th has learned: set it again, clear of ties
+                _set_th(tr, _copy_trainer(tr, "cpu", torch.float32), splits, card)
+            tr.save_model()
+            tr_cpu = ETTorchTrainer(cfg, tag="smoke", datasets=splits, device="cpu")
+            tr_cpu.load_model()
+            t_part = _lap(card, name, "fit(1)", t_part)
+
+            # --- 3. test(): one block of EVAL_BATCH x N_MAX, card vs CPU; dense block ---
+            batch = next(iter(SceneBatcher(test, EVAL_BATCH, False, N_MAX)))
+            with _noting_relabels(gpgraph_common) as seen:
+                group.LAUNCHES = 0
+                with _knife_edges_on_failure(name, tr_cpu, tr_cpu._to_device(batch)):
+                    res, n = _check_test(name, tr, tr_cpu, recon)
+                n_group = group.LAUNCHES
+            if n != test_blocks:
+                raise AssertionError(f"{name}: test() launched fused_recon_metrics {n} times")
+            launches["recon_metrics"] += n
+            if name == "implicit":
+                counts, _ = _zone_counts(tr_cpu, tr_cpu._to_device(batch))
+                print(f"{name} test() block: pedestrians by zone {counts}", flush=True)
+                if sum(c > 0 for c in counts) < 2:
+                    raise AssertionError(f"{name}: fewer than two zones used in the test() "
+                                         f"block: {counts}")
+            else:
+                if n_group != test_blocks:
+                    raise AssertionError(f"{name}: test() launched group_relabel {n_group} "
+                                         f"times for {test_blocks} block(s)")
+                launches["group"] += n_group
+                merge, valid = seen[0][0], seen[0][1]       # the card's, at (320, 57)
+                counts = _group_counts(merge, valid)
+                print(f"{name} test() block: {counts}; group_relabel launches {n_group}",
+                      flush=True)
+                if counts["groups of 2+"] < 1 or counts["singletons"] < 1:
+                    raise AssertionError(f"{name}: no grouping in the test() block: {counts}")
+                noted.setdefault((EVAL_BATCH, N_MAX), (merge, valid))
+
+            tr_d = ETTorchTrainer(cfg, tag="smoke", datasets=dense_splits)
+            tr_d.load_model()
+            tr_d_cpu = ETTorchTrainer(cfg, tag="smoke", datasets=dense_splits, device="cpu")
+            tr_d_cpu.load_model()
+            if name != "implicit":
+                _set_th(tr_d, tr_d_cpu, dense_splits, card)
+            dense_eval = next(iter(SceneBatcher(dense_test, EVAL_BATCH, False, N_MAX)))
+            group.LAUNCHES = 0
+            with _knife_edges_on_failure(name, tr_d_cpu, tr_d_cpu._to_device(dense_eval)):
+                _, n = _check_test(f"{name} (dense block)", tr_d, tr_d_cpu, recon)
+            launches["recon_metrics"] += n
+            launches["group"] += group.LAUNCHES
+            t_part = _lap(card, name, "test() of both blocks, card and CPU", t_part)
+
+            # --- 4. predict() (a), (b), (c) at BUCKET slots a scene ---
+            # GP-Graph-SGCN's request (b) is checked on its first 64 scenes
+            # (each scene is a row of its own): the CPU's f32 and f64 runs of
+            # the whole took 142.7 s on the host of an NVIDIA H100 80GB HBM3
+            # (PERF.md §6). Its whole request (b) runs below, timed.
+            checked = requests
+            if name == "gpgraphsgcn":
+                first = whole[1] < 64
+                checked = {**requests, "(b)": (whole[0][first], whole[1][first])}
+            with _noting_relabels(gpgraph_common) as seen:
+                group.LAUNCHES = 0
+                predictor, n = _serve(name, cfg, splits, checked, loose=((name, "(c)"),),
+                                      tag="smoke")
+                n_group = group.LAUNCHES
+            launches["reconstruct"] += n
+            if name != "implicit":
+                # (a), the two-scene request, (b), (c) on the card; the CPU runs do not launch
+                if n_group != 4:
+                    raise AssertionError(f"{name}: predict() launched group_relabel {n_group} "
+                                         f"times for 4 requests")
+                launches["group"] += n_group
+                for merge, valid, _, _ in seen:
+                    if merge.is_cuda:
+                        noted.setdefault(tuple(valid.shape), (merge, valid))
+            t_part = _lap(card, name, "predict() (a), (b), (c), card and CPU f32 / f64", t_part)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            predictor.predict(*whole)
+            torch.cuda.synchronize()
+            print(f"[{card}] {name} predict() (b) ({N_SCENES} rows of {BUCKET} slots): peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                  f"(max_memory_allocated; {held / 2**30:.3f} GiB held before the call)",
+                  flush=True)
+            walls = {
+                f"test_{name}": (_host_times(
+                    lambda: tr.test(eval_batch=EVAL_BATCH), card,
+                    f"{name} test() ({n_peds} peds in {EVAL_BATCH}x{N_MAX} slots)", n_peds,
+                    runs=GROUP_ZONE_RUNS), lambda: tr.test(eval_batch=EVAL_BATCH)),
+                f"predict_{name}": (_host_times(
+                    lambda: predictor.predict(*whole), card,
+                    f"{name} predict() request (b) ({n_peds} peds in {N_SCENES}x{BUCKET} slots)",
+                    n_peds, runs=GROUP_ZONE_RUNS), lambda: predictor.predict(*whole))}
+            if profile_dir is not None:
+                for label, (wall_s, fn) in walls.items():
+                    _profile(label, fn, card, wall_s, profile_dir)
+                _profile_train(card, name, tr, 1, profile_dir)
+            t_part = _lap(card, name, "host-clock times and profiles", t_part)
+
+            # --- 5. ET-GP-Graph-STGCNN: a resume against the straight fit(2) ---
+            if name == "gpgraphstgcnn":
+                straight = ETTorchTrainer(cfg, tag="smoke-straight", datasets=splits)
+                straight.model.load_state_dict(tr.model.state_dict())
+                first = ETTorchTrainer(cfg, tag="smoke-resume", datasets=splits)
+                first.model.load_state_dict(tr.model.state_dict())
+                for t in (straight, first):
+                    t._set_et(tr.et)
+                group.LAUNCHES = 0
+                straight.fit(num_epochs=2, verbose=False)
+                first.fit(num_epochs=1, checkpoint_every=1, verbose=False)
+                resumed = ETTorchTrainer(cfg, tag="smoke-resume", datasets=splits)
+                resumed.fit(num_epochs=2, resume=True, verbose=False)
+                launches["group"] += group.LAUNCHES
+                gaps = [abs(a - b) / abs(b) for a, b in zip(resumed.log["train_loss"],
+                                                            straight.log["train_loss"])]
+                # Not bitwise on the card: its reductions (cuDNN's weight
+                # gradients) vary from run to run by ~1e-7, which the
+                # inverse-distance adjacency amplifies (step 7 holds
+                # ET-STGCNN's resume to 1e-3).
+                if len(resumed.epoch_timer.durations) != 1 or len(gaps) != 2 or max(gaps) > 1e-4:
+                    raise AssertionError(f"{name}: fit(1) + resume gave {resumed.log} against "
+                                         f"the straight run's {straight.log}")
+                print(f"[{card}] {name} fit(1) + resume.pt + fit(2) against fit(2): train losses "
+                      f"{resumed.log['train_loss']} vs {straight.log['train_loss']}, relative "
+                      f"gaps {[f'{g:.3e}' for g in gaps]} (<= 1e-4)", flush=True)
+            print(f"[{card}] step 11 {name}: {time.perf_counter() - t_model:.1f} s", flush=True)
+
+        # --- 6. ET-DMRGCN (eth weights) on the dense block: test() and a step ---
+        name = "dmrgcn"
+        cfg = load_config(os.path.join(REPO, "configs", f"eigentrajectory-{name}-eth.json"),
+                          checkpoint_dir=ckpt_dir, n_max_peds=N_MAX)
+        blob = torch.load(os.path.join(REPO, "benchmarks", "ref_resume", f"{name}-eth.pt"),
+                          map_location="cpu", weights_only=False)["best_model"]
+        pth = os.path.join(ckpt_dir, f"{name}-model_best.pth")
+        with open(pth, "wb") as f:
+            f.write(blob)
+        tr = import_checkpoint_to_trainer(cfg, pth, "imported", datasets=dense_splits)
+        tr_cpu = ETTorchTrainer(cfg, tag="imported", datasets=dense_splits, device="cpu")
+        tr_cpu.load_model()
+        with _band_edges_on_failure(name, lambda: tr_cpu.test(eval_batch=EVAL_BATCH)):
+            _, n = _check_test(f"{name} (eth weights, dense block)", tr, tr_cpu, recon)
+        launches["recon_metrics"] += n
+        keeps = draw_edge_keeps(tr.model, torch.Generator().manual_seed(cfg.seed + 1),
+                                TRAIN_BATCH, N_MAX)
+
+        def probe():
+            cpu = _copy_trainer(tr, "cpu", torch.float32)
+            with torch.no_grad():
+                cpu._chunk_loss(*cpu._to_device(dense_block))
+
+        with _band_edges_on_failure(name, probe):
+            _check_one_step(name, tr, dense_block, "dense block, eth weights, DropEdge on",
+                            edge_keeps=keeps)
+
+    # --- 7. the relabel kernel against its plain version, and its times ---
+    before, errs = group.LAUNCHES, []
+    for shape in ((EVAL_BATCH, N_MAX), (N_SCENES, BUCKET), (1, 2 * BUCKET)):
+        if shape not in noted:
+            raise AssertionError(f"group_relabel: no main-path call at {shape} was noted")
+        merge, valid = noted[shape]
+        label = {(1, 2 * BUCKET): "request (c), 150 pedestrians"}.get(shape, "main path")
+        errs.append(_relabel_check(group, merge, valid, label))
+    rng = np.random.default_rng(31)
+    for n, b in ((31, 3), (32, 3), (33, 3), (1025, 2)):
+        dist = torch.from_numpy(rng.random((b, n, n)).astype(np.float32))
+        valid = torch.from_numpy(np.arange(n)[None] < rng.integers(n // 2, n + 1, size=(b, 1)))
+        merge = gpgraph_common.merge_mask(dist, torch.tensor(min(0.3, 2.0 / n)), valid)
+        errs.append(_relabel_check(group, merge.cuda(), valid.cuda(),
+                                   f"random mask, density {float(merge.float().mean()):.4f}"))
+    times = {shape: _relabel_times(group, card, *noted[shape], plain_iters=iters)
+             for shape, iters in (((EVAL_BATCH, N_MAX), 5), ((N_SCENES, BUCKET), 2))}
+    group.LAUNCHES = before
+    print(f"[{card}] step 11 (groups and zones) ran {time.perf_counter() - t_step:.1f} s",
+          flush=True)
+    return launches, max(errs), times
+
+
 def main(argv):
     import torch
 
@@ -1794,7 +2356,7 @@ def main(argv):
     import numpy as np
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
-    from eigentrajectory_tpu_torch.ops import build, recon
+    from eigentrajectory_tpu_torch.ops import build, group, recon
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1804,7 +2366,7 @@ def main(argv):
     print(card, flush=True)
 
     # --- 1. build: one nvcc for each source, started together ---
-    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE)
+    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
@@ -1916,11 +2478,19 @@ def main(argv):
     recon_metrics_launches += n_metrics
     reconstruct_launches += n_reconstruct
 
+    # --- 11. groups and zones: GP-Graph (x2), Social-Implicit; the dense block ---
+    counts, relabel_err, relabel_times = _groups_zones_phase(card, recon, group, data,
+                                                             profile_dir)
+    recon_metrics_launches += counts["recon_metrics"]
+    reconstruct_launches += counts["reconstruct"]
+
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",
                 "source": f"eigentrajectory_tpu_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 **measured, "library_ms": None}
+
+    main_times = relabel_times[(EVAL_BATCH, N_MAX)]
 
     print(f"[{card}] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
@@ -1928,7 +2498,11 @@ def main(argv):
             recon_metrics_launches, max(errs), times),
         row("fused_reconstruct", recon.RECONSTRUCT_SOURCE,
             "eigentrajectory_tpu/ops/pallas_recon.py:32", reconstruct_launches, max(rerrs),
-            r_times)]}))
+            r_times),
+        # No Pallas kernel: the device loop (lax.fori_loop) of find_group_indices.
+        row("group_relabel", group.SOURCE, "eigentrajectory_tpu/models/gpgraph_common.py:30",
+            counts["group"], relabel_err,
+            {**main_times, "at_301x128": relabel_times[(N_SCENES, BUCKET)]})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

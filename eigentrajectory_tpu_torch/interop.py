@@ -447,11 +447,45 @@ def _import_agentformer(sd):
     return out
 
 
+def _import_implicit(sd):
+    """SocialImplicitLight -> `models/implicit.py`. The per-pedestrian
+    Conv1d weights (O, I, k) become the (O, I, k, 1) kernels of the port's
+    `Conv1dTorch`, under `.conv`."""
+    out = {}
+    for i in range(4):
+        ours, theirs = f"cell_{i}", f"implicit_cells.{i}"
+        for name in ("noise_w", "global_w", "local_w"):
+            out[f"{ours}.{name}"] = sd[f"{theirs}.{name}"]
+        out.update(_modules(sd, [(f"{ours}.{name}", f"{theirs}.{name}")
+                                 for name in ("feat", "highway_input", "highway", "tpcnn")]))
+        for name in ("feat", "highway_input", "highway", "tpcnn"):
+            out[f"{ours}.ped.{name}.conv.weight"] = sd[f"{theirs}.ped.{name}.weight"][..., None]
+            out[f"{ours}.ped.{name}.conv.bias"] = sd[f"{theirs}.ped.{name}.bias"]
+    return out
+
+
+def _import_gpgraph(sd, baseline_converter):
+    """The GPGraph wrapper: the weight-shared baseline under
+    `baseline_model.`, GroupGenerator (learned_l2norm) and GroupIntegrator
+    (mlp)."""
+    inner = {k[len("baseline_model."):]: v for k, v in sd.items()
+             if k.startswith("baseline_model.")}
+    out = {f"baseline_model.{k}": v for k, v in baseline_converter(inner).items()}
+    out["group_gen.th"] = sd["group_gen.th"]
+    out.update(_modules(sd, [("group_gen.group_cnn", "group_gen.group_cnn.0"),
+                             ("group_mix.mix_prelu", "group_mix.st_gcns_mix.0"),
+                             ("group_mix.mix_conv", "group_mix.st_gcns_mix.1")]))
+    return out
+
+
 CONVERTERS: Dict[str, Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = {
     "stgcnn": _import_stgcnn,
     "sgcn": _import_sgcn,
     "dmrgcn": _import_dmrgcn,
     "graphtern": _import_graphtern,
+    "gpgraphstgcnn": lambda sd: _import_gpgraph(sd, _import_stgcnn),
+    "gpgraphsgcn": lambda sd: _import_gpgraph(sd, _import_sgcn),
+    "implicit": _import_implicit,
     "pecnet": _import_pecnet,
     "lbebm": _import_lbebm,
     "agentformer": _import_agentformer,

@@ -2,15 +2,17 @@
 
 Each predictor module exports make_model(cfg), prepare(c_obs, obs_ori, aux),
 finalize(output, aux) and BATCHING, as in `eigentrajectory_tpu/models`. The
-port holds the sequenced ET-STGCNN, ET-SGCN, ET-DMRGCN and ET-Graph-TERN
-(its live `GraphTERNLight` path) and the collated ET-PECNet, ET-LB-EBM and
-ET-AgentFormer so far; the other predictors follow in later slices.
+port holds all ten: the sequenced ET-STGCNN, ET-SGCN, ET-DMRGCN,
+ET-Graph-TERN (its live `GraphTERNLight` path), ET-GP-Graph-STGCNN,
+ET-GP-Graph-SGCN and ET-Social-Implicit (`SocialImplicitLight`), and the
+collated ET-PECNet, ET-LB-EBM and ET-AgentFormer.
 """
 from __future__ import annotations
 
 import importlib
 
-_BASELINES = ("stgcnn", "sgcn", "dmrgcn", "graphtern", "pecnet", "lbebm", "agentformer")
+_BASELINES = ("stgcnn", "sgcn", "dmrgcn", "graphtern", "gpgraphstgcnn", "gpgraphsgcn",
+              "implicit", "pecnet", "lbebm", "agentformer")
 
 
 def available_baselines():

@@ -1,8 +1,8 @@
 """ET-SGCN: sparse-graph-convolution predictor in ET coefficient space.
 
-The counterpart of `eigentrajectory_tpu/models/sgcn.py` (without its GP-Graph
-variant flags), with the ET wiring number_asymmetric_conv_layer=7,
-embedding_dims=64, obs_len=k+2, pred_len=k, n_tcn=5, in_dims=1, out_dims=s.
+The counterpart of `eigentrajectory_tpu/models/sgcn.py`, with the ET wiring
+number_asymmetric_conv_layer=7, embedding_dims=64, obs_len=k+2, pred_len=k,
+n_tcn=5, in_dims=1, out_dims=s.
 
 The JAX model sees one (1, T, N, 1) scene under `vmap`; here the scene axis
 is written out. The spatial stream keeps (scene, time) on the batch axis,
@@ -17,6 +17,13 @@ stream keeps peds on the batch axis and needs no masking.
 
 Quirk reproduced deliberately: the temporal "identity" of the bridge is
 eye(1), so the temporal interaction mask gets 1 added everywhere.
+
+The GP-Graph variant (`gpgraph_variant`, used by `models/gpgraphsgcn.py`)
+takes a loc_pos channel in front of the coefficients: it is kept out of the
+spatial attention and the GCN (`drop_first_channel`) and fed to the temporal
+attention (in_dims + 1 inputs). Its callers hand a true eye(T) temporal
+identity and, for the intra-group stream, a (B, N, N) pair mask that
+multiplies the spatial interaction mask.
 """
 from __future__ import annotations
 
@@ -104,20 +111,26 @@ class SparseWeightedAdjacency(nn.Module):
     """Sparse spatial (B*T, 4, N, N) and temporal (B*N, 4, T, T) adjacency."""
 
     def __init__(self, spa_in_dims: int = 1, tem_in_dims: int = 1,
-                 embedding_dims: int = 64, obs_len: int = 8, n_asym: int = 7):
+                 embedding_dims: int = 64, obs_len: int = 8, n_asym: int = 7,
+                 drop_first_channel: bool = False):
         super().__init__()
+        self.drop_first_channel = drop_first_channel
         self.spatial_attention = SelfAttention(spa_in_dims, embedding_dims)
         self.temporal_attention = SelfAttention(tem_in_dims, embedding_dims)
         self.spa_fusion_conv = TorchConv2d(obs_len, obs_len, (1, 1))
         self.spa_fusion_prelu = PReLU()
         self.interaction_mask = InteractionMask(n_asym)
 
-    def forward(self, graph, identity, valid):
-        # graph: (B, T, N, d); identity: (eye_n (B, N, N), eye(1)); valid (B, N).
+    def forward(self, graph, identity, valid, pair_mask=None):
+        # graph: (B, T, N, d); identity: (eye_n (B, N, N), eye_t: eye(1) or
+        # eye(T), the same for every scene); valid (B, N); pair_mask:
+        # optional (B, N, N), multiplying the spatial mask.
         b, t, n, d = graph.shape
         valid_rows = valid.repeat_interleave(t, dim=0)                 # (B*T, N)
+        spatial_graph = graph[..., 1:] if self.drop_first_channel else graph
         dense_spatial, _ = self.spatial_attention(
-            graph.reshape(b * t, n, d), key_mask=valid_rows)           # (B*T, 4, N, N)
+            spatial_graph.reshape(b * t, n, spatial_graph.shape[-1]),
+            key_mask=valid_rows)                                       # (B*T, 4, N, N)
         dense_temporal, _ = self.temporal_attention(
             graph.transpose(1, 2).reshape(b * n, t, d))                # (B*N, 4, T, T)
 
@@ -135,6 +148,9 @@ class SparseWeightedAdjacency(nn.Module):
         eye_n, eye_t = identity
         spatial_mask = spatial_mask + eye_n.repeat_interleave(t, dim=0)[:, None]
         temporal_mask = temporal_mask + eye_t
+        if pair_mask is not None:
+            spatial_mask = spatial_mask * pair_mask.to(spatial_mask.dtype).repeat_interleave(
+                t, dim=0)[:, None]
 
         norm_spatial = zero_softmax(dense_spatial * spatial_mask, dim=-1)
         norm_temporal = zero_softmax(dense_temporal * temporal_mask, dim=-1)
@@ -164,8 +180,10 @@ def _swap_scene_axes(x: torch.Tensor, b: int) -> torch.Tensor:
 class SparseGraphConvolution(nn.Module):
     """Dual spatial->temporal and temporal->spatial GCN streams."""
 
-    def __init__(self, in_dims: int = 1, embedding_dims: int = 16):
+    def __init__(self, in_dims: int = 1, embedding_dims: int = 16,
+                 drop_first_channel: bool = False):
         super().__init__()
+        self.drop_first_channel = drop_first_channel
         self.st_gcn_0 = GraphConvolution(in_dims, embedding_dims)
         self.st_gcn_1 = GraphConvolution(embedding_dims, embedding_dims)
         self.ts_gcn_0 = GraphConvolution(in_dims, embedding_dims)
@@ -173,6 +191,8 @@ class SparseGraphConvolution(nn.Module):
 
     def forward(self, graph, norm_spatial, norm_temporal):
         # graph: (B, T, N, d) -> both outputs (B*N, 4, T, e)
+        if self.drop_first_channel:
+            graph = graph[..., 1:]
         b, t, n, d = graph.shape
         spa_graph = graph.reshape(b * t, 1, n, d)                      # (B*T, 1, N, d)
         tem_graph = graph.transpose(1, 2).reshape(b * n, 1, t, d)      # (B*N, 1, T, d)
@@ -190,12 +210,15 @@ class SGCNTrajectoryModel(nn.Module):
 
     def __init__(self, n_asym: int = 7, embedding_dims: int = 64, obs_len: int = 8,
                  pred_len: int = 6, n_tcn: int = 5, in_dims: int = 1,
-                 out_dims: int = 20, num_heads: int = 4):
+                 out_dims: int = 20, num_heads: int = 4, gpgraph_variant: bool = False):
         super().__init__()
         self.n_tcn = n_tcn
+        tem_in = in_dims + 1 if gpgraph_variant else in_dims
         self.sparse_adjacency = SparseWeightedAdjacency(
-            in_dims, in_dims, embedding_dims, obs_len, n_asym)
-        self.stsgcn = SparseGraphConvolution(in_dims, embedding_dims // num_heads)
+            in_dims, tem_in, embedding_dims, obs_len, n_asym,
+            drop_first_channel=gpgraph_variant)
+        self.stsgcn = SparseGraphConvolution(in_dims, embedding_dims // num_heads,
+                                             drop_first_channel=gpgraph_variant)
         self.fusion = TorchConv2d(num_heads, num_heads, (1, 1), use_bias=False)
         self.tcn_0 = TorchConv2d(obs_len, pred_len, (3, 3), padding=(1, 1))
         self.tcn_prelu_0 = PReLU()
@@ -205,10 +228,11 @@ class SGCNTrajectoryModel(nn.Module):
             self.add_module(f"tcn_prelu_{j}", PReLU())
         self.output = nn.Linear(embedding_dims // num_heads, out_dims)
 
-    def forward(self, graph, identity, valid):
-        # graph: (B, T, N, in_dims) -> (B, pred_len, N, out_dims)
+    def forward(self, graph, identity, valid, pair_mask=None):
+        # graph: (B, T, N, in_dims), the GP-Graph variant (B, T, N, in_dims + 1)
+        # with loc_pos in channel 0 -> (B, pred_len, N, out_dims)
         b, _, n, _ = graph.shape
-        norm_spatial, norm_temporal = self.sparse_adjacency(graph, identity, valid)
+        norm_spatial, norm_temporal = self.sparse_adjacency(graph, identity, valid, pair_mask)
         # The JAX model names the streams the other way round; kept here.
         gcn_ts, gcn_st = self.stsgcn(graph, norm_spatial, norm_temporal)
 

@@ -17,7 +17,7 @@ Quirks reproduced deliberately:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,17 +25,23 @@ from torch import nn
 from .common import MaskedBatchNorm2d, PReLU, TorchConv2d, zero_invalid
 
 
-def generate_adjacency_matrix(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def generate_adjacency_matrix(v: torch.Tensor, valid: torch.Tensor,
+                              pair_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverse-distance normalized-Laplacian adjacency.
 
-    v: (B, 1, T, V) coefficient sequences; valid: (B, V) bool.
+    v: (B, 1, T, V) coefficient sequences; valid: (B, V) bool; pair_mask:
+    optional (B, V, V) bool multiplying the inverse-distance kernel (the
+    GP-Graph intra-group stream's group mask).
     Returns (B, T, V, V). Padded nodes are isolated (their rows/cols vanish).
     """
     x = v[:, 0]                                              # (B, T, V)
     a = torch.abs(x[..., :, None] - x[..., None, :])         # (B, T, V, V)
     zero = a == 0
     a_inv = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, a))
-    mask = (valid[:, :, None] & valid[:, None, :]).to(x.dtype)
+    mask = valid[:, :, None] & valid[:, None, :]
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    mask = mask.to(x.dtype)
     a_inv = a_inv * mask[:, None]
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     a_hat = a_inv + eye
@@ -46,15 +52,20 @@ def generate_adjacency_matrix(v: torch.Tensor, valid: torch.Tensor) -> torch.Ten
 
 
 class STGCN(nn.Module):
-    """st_gcn block: graph conv + temporal conv + residual, PReLU output."""
+    """st_gcn block: graph conv + temporal conv + residual, PReLU output.
+
+    `single_relation` is the GP-Graph variant: the graph conv emits
+    out_channels (not out_channels * K) and contracts 'nctv,tvw->nctw'."""
 
     def __init__(self, in_channels: int, out_channels: int, t_kernel: int,
-                 spatial_kernel: int):
+                 spatial_kernel: int, single_relation: bool = False):
         super().__init__()
         self.spatial_kernel = spatial_kernel
+        self.single_relation = single_relation
         self.res_conv = TorchConv2d(in_channels, out_channels, (1, 1))
         self.res_bn = MaskedBatchNorm2d(out_channels)
-        self.gcn_conv = TorchConv2d(in_channels, out_channels * spatial_kernel, (1, 1))
+        self.gcn_conv = TorchConv2d(
+            in_channels, out_channels * (1 if single_relation else spatial_kernel), (1, 1))
         self.tcn_bn1 = MaskedBatchNorm2d(out_channels)
         self.tcn_prelu = PReLU()
         pad = (t_kernel - 1) // 2
@@ -67,9 +78,12 @@ class STGCN(nn.Module):
         # x: (B, C_in, T, V); a: (B, K=T, V, V). In != out in the ET wiring.
         res = self.res_bn(self.res_conv(x), valid)
         h = self.gcn_conv(x)
-        b, kc, t, v = h.shape
-        h = h.reshape(b, self.spatial_kernel, kc // self.spatial_kernel, t, v)
-        h = torch.einsum("bkctv,bkvw->bctw", h, a)
+        if self.single_relation:
+            h = torch.einsum("bctv,btvw->bctw", h, a)
+        else:
+            b, kc, t, v = h.shape
+            h = h.reshape(b, self.spatial_kernel, kc // self.spatial_kernel, t, v)
+            h = torch.einsum("bkctv,bkvw->bctw", h, a)
         h = self.tcn_prelu(self.tcn_bn1(h, valid))
         h = self.tcn_bn2(self.tcn_conv(h), valid)
         return self.out_prelu(h + res)
@@ -80,14 +94,14 @@ class SocialSTGCNN(nn.Module):
 
     def __init__(self, n_stgcnn: int = 1, n_txpcnn: int = 5, input_feat: int = 1,
                  output_feat: int = 20, seq_len: int = 8, pred_seq_len: int = 6,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, single_relation: bool = False):
         super().__init__()
         self.n_stgcnn = n_stgcnn
         self.n_txpcnn = n_txpcnn
         for i in range(n_stgcnn):
             cin = input_feat if i == 0 else output_feat
-            self.add_module(f"st_gcn_{i}",
-                            STGCN(cin, output_feat, kernel_size, seq_len))
+            self.add_module(f"st_gcn_{i}", STGCN(cin, output_feat, kernel_size, seq_len,
+                                                 single_relation=single_relation))
         self.tpcnn_0 = TorchConv2d(seq_len, pred_seq_len, (3, 3), padding=(1, 1))
         self.prelu_0 = PReLU()
         # tpcnn_{n_txpcnn-1} is built and never called, as in the reference.

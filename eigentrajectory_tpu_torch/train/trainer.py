@@ -2,7 +2,8 @@
 
 The counterpart of `eigentrajectory_tpu/train/trainer.py` (`ETJaxTrainer`).
 
-* sequenced (ET-STGCNN, ET-SGCN, ET-DMRGCN, ET-Graph-TERN): padded blocks
+* sequenced (ET-STGCNN, ET-SGCN, ET-DMRGCN, ET-Graph-TERN,
+  ET-GP-Graph-STGCNN, ET-GP-Graph-SGCN, ET-Social-Implicit): padded blocks
   of scenes go through the ET facade with the scene axis written out. The
   step loss is the sum over the block's scenes of the three per-scene
   losses (non-finite ones zeroed, padding scenes weighted 0) divided by
@@ -128,6 +129,10 @@ class ETTorchTrainer:
         self.model = model.to(self.device, dtype).eval()
         set_dropout_generator(self.model, self.dropout_generator)
         self.optimizer = self._make_optimizer()
+        # The parameters the JAX tree holds (the layers built and never
+        # called have no counterpart there): each gets a gradient every step.
+        unused = getattr(self.model, "unused_prefixes", lambda: ())()
+        self._called = [p for n, p in self.model.named_parameters() if not n.startswith(unused)]
         self.et: Optional[ETParams] = None
 
     def _make_optimizer(self) -> torch.optim.AdamW:
@@ -225,6 +230,10 @@ class ETTorchTrainer:
         parameters' `.grad` and the BN statistics moved once. The model must
         be in train mode.
 
+        A parameter the forward does not reach (Social-Implicit's `noise_w`)
+        gets a zero gradient, as `jax.grad` gives it, not None: the
+        optimizer then decays it as optax does.
+
         A model with DropEdge gets its masks for the whole block, one
         (B, R, T, N, N) mask a DropEdge layer, drawn here once a step from
         `dropout_generator` (`common.draw_edge_keeps`) unless `edge_keeps`
@@ -247,7 +256,9 @@ class ETTorchTrainer:
         try:
             if m <= 1 or self.collated:
                 set_edge_keeps(self.model, keeps)
-                return self._chunk_backward(obs, pred, valid, scene_info)
+                loss = self._chunk_backward(obs, pred, valid, scene_info)
+                self._zero_missing_grads()
+                return loss
 
             if obs.shape[0] % m:
                 raise ValueError("the block's scenes must be divisible by micro_batches")
@@ -266,9 +277,15 @@ class ETTorchTrainer:
                 wsum = wsum + n_valid
             for a, b in zip(acc, stats):
                 b.copy_(a / torch.clamp_min(wsum, 1.0))
+            self._zero_missing_grads()
             return total
         finally:
             set_edge_keeps(self.model, None)
+
+    def _zero_missing_grads(self):
+        for p in self._called:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
     def apply_gradients(self):
         """One optimizer update from the gradients in `.grad`, in optax's

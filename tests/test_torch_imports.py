@@ -55,6 +55,10 @@ def test_port_imports_no_jax():
     "eigentrajectory_tpu_torch.models.agentformer",
     "eigentrajectory_tpu_torch.models.dmrgcn",
     "eigentrajectory_tpu_torch.models.graphtern",
+    "eigentrajectory_tpu_torch.models.gpgraphstgcnn",
+    "eigentrajectory_tpu_torch.models.gpgraphsgcn",
+    "eigentrajectory_tpu_torch.models.implicit",
+    "eigentrajectory_tpu_torch.ops.group",
     "eigentrajectory_tpu_torch.models.common",
     "eigentrajectory_tpu_torch.inference",
     "eigentrajectory_tpu_torch.data.batching",

@@ -5,8 +5,8 @@ reference; its `best_model` field holds the bytes of the reference's
 `model_best.pth`, a state dict with `baseline_model.*` and ET keys. The
 port's `import_state_dict` must give, bit for bit, what the JAX package's
 `import_state_dict` followed by `params_from_jax` gives: on that file, and
-for the other four converters on synthetic state dicts keyed as the JAX
-converters read them. The same holds for ET-DMRGCN and ET-Graph-TERN on the
+for the other converters (GP-Graph's and Implicit's included) on synthetic
+state dicts keyed as the JAX converters read them. The same holds for ET-DMRGCN and ET-Graph-TERN on the
 eth snapshots (`dmrgcn-eth.pt`, `graphtern-eth.pt`). The imported models
 evaluate as the JAX package does, and the CLI writes a checkpoint the
 port's trainer reads.
@@ -111,7 +111,29 @@ _AGENTFORMER = [(r"^ctx_input_fc\.", "context_encoder.input_fc."),
                 (r"\.in_proj_self_bias$", ".in_proj_bias_self"),
                 (r"^out_fc_kernel$", "future_decoder.out_fc.weight"),
                 (r"^out_fc_bias$", "future_decoder.out_fc.bias")]
-RULES = {"stgcnn": _STGCNN, "pecnet": _MLP, "lbebm": _MLP, "agentformer": _AGENTFORMER}
+_SGCN = [(r"^sparse_adjacency\.spa_fusion_conv\.", "sparse_weighted_adjacency_matrices.spa_fusion.conv.0."),
+         (r"^sparse_adjacency\.spa_fusion_prelu\.", "sparse_weighted_adjacency_matrices.spa_fusion.conv.1."),
+         (r"^sparse_adjacency\.interaction_mask\.(spatial|temporal)_(\d)\.",
+          r"sparse_weighted_adjacency_matrices.interaction_mask.\1_asymmetric_convolutions.\2."),
+         (r"^sparse_adjacency\.", "sparse_weighted_adjacency_matrices."),
+         (r"^stsgcn\.st_gcn_(\d)\.", r"stsgcn.spatial_temporal_sparse_gcn.\1."),
+         (r"^stsgcn\.ts_gcn_(\d)\.", r"stsgcn.temporal_spatial_sparse_gcn.\1."),
+         (r"^fusion\.", "fusion_."), (r"^tcn_prelu_(\d)\.", r"tcns.\1.1."),
+         (r"^tcn_(\d)\.", r"tcns.\1.0.")]
+
+
+def _gpgraph(inner):
+    """The GPGraph wrapper's names around a baseline's rules."""
+    return [(r"^group_gen\.group_cnn\.", "group_gen.group_cnn.0."),
+            (r"^group_mix\.mix_prelu\.", "group_mix.st_gcns_mix.0."),
+            (r"^group_mix\.mix_conv\.", "group_mix.st_gcns_mix.1.")] + \
+        [(r"^baseline_model\." + pattern[1:], "baseline_model." + repl) for pattern, repl in inner]
+
+
+_IMPLICIT = [(r"^cell_(\d)\.", r"implicit_cells.\1."), (r"\.ped\.(\w+)\.conv\.", r".ped.\1.")]
+RULES = {"stgcnn": _STGCNN, "pecnet": _MLP, "lbebm": _MLP, "agentformer": _AGENTFORMER,
+         "gpgraphstgcnn": _gpgraph(_STGCNN), "gpgraphsgcn": _gpgraph(_SGCN),
+         "implicit": _IMPLICIT}
 
 
 def _reference_keyed(baseline, seed):
@@ -125,6 +147,8 @@ def _reference_keyed(baseline, seed):
         shape = tuple(value.shape)
         if name.endswith("_kernel"):
             shape = shape[::-1]
+        if re.search(r"\.ped\.\w+\.conv\.weight$", name):
+            shape = shape[:-1]                   # Conv1d (O, I, k) in the reference
         for pattern, repl in RULES[baseline]:
             name = re.sub(pattern, repl, name)
         sd[f"baseline_model.{name}"] = torch.from_numpy(
@@ -148,10 +172,31 @@ def test_the_other_converters_are_bitwise_the_jax_converters(baseline):
     assert (baseline == "stgcnn") == bool(missing)   # the fifth tpcnn is never called
 
 
+@pytest.mark.parametrize("baseline", ["gpgraphstgcnn", "gpgraphsgcn", "implicit"])
+def test_the_group_and_zone_converters_are_bitwise_the_jax_converters(baseline):
+    """GP-Graph's wrapper (`group_gen.th`, `group_gen.group_cnn.0`,
+    `group_mix.st_gcns_mix.{0,1}`, the baseline under `baseline_model.`,
+    its BN statistics included) and Implicit's cells (bare `noise_w`,
+    `global_w`, `local_w`; the per-pedestrian Conv1d weights (O, I, k) as
+    (O, I, k, 1) kernels): bit for bit what the JAX converters give, and
+    every parameter the model calls filled."""
+    model, sd = _reference_keyed(baseline, seed=len(baseline))
+    if baseline == "gpgraphsgcn":
+        assert sd["baseline_model.baseline_model.sparse_weighted_adjacency_matrices."
+                  "temporal_attention.embedding.weight"].shape == (64, 2)
+    got = import_state_dict(baseline, sd)
+    _assert_bitwise(got, _jax_path(baseline, sd))
+    missing, unexpected = model.load_state_dict(got[0], strict=False)
+    unused = getattr(model, "unused_prefixes", lambda: ())()
+    assert not unexpected and all(k.startswith(unused) for k in missing)
+    assert (baseline == "gpgraphstgcnn") == bool(missing)  # the baseline's fifth tpcnn
+
+
 def test_an_unknown_baseline_names_the_converters():
     with pytest.raises(NotImplementedError, match="agentformer"):
-        import_state_dict("implicit", {})
-    assert sorted(interop.CONVERTERS) == ["agentformer", "dmrgcn", "graphtern", "lbebm",
+        import_state_dict("no_such_model", {})
+    assert sorted(interop.CONVERTERS) == ["agentformer", "dmrgcn", "gpgraphsgcn",
+                                          "gpgraphstgcnn", "graphtern", "implicit", "lbebm",
                                           "pecnet", "sgcn", "stgcnn"]
 
 

@@ -74,3 +74,22 @@ def test_case_is_made_from_its_seed():
     assert all(np.array_equal(a[key], b[key]) for key in a)
     assert all(v.dtype == (bool if key == "mask" else np.float32) for key, v in a.items())
     assert not np.array_equal(a["c_m"], chip_smoke._case(40, seed=6)["c_m"])
+
+
+def test_relabel_bound_counts_the_masks_bytes_and_the_merges_that_fire():
+    """The group relabel's yardstick: the strictly lower triangle of merge
+    (B*N(N-1)/2 bytes: the rest is zero by contract and is not read) and
+    valid in, ranks and n_groups (int32) out; operations the chain's pair steps, N
+    compares a merge that fires and the 4N presence and prefix pass a scene,
+    against the f32 rate. At the eval shape the bytes bound it."""
+    import torch
+
+    b, n = 320, 57
+    merge = torch.zeros((b, n, n), dtype=torch.bool)
+    merge[:, 3, 1] = merge[:5, 9, 2] = True
+    valid = torch.ones((b, n), dtype=torch.bool)
+    ms, by = chip_smoke._relabel_bound_ms(merge, valid)
+    total = b * n * (n - 1) // 2 + b * n + 4 * b * n + 4 * b
+    ops = b * n * (n - 1) // 2 + (b + 5) * n + b * 4 * n
+    assert by == "bytes" and total / 3.35e12 > ops / 67e12
+    assert ms == pytest.approx(total / 3.35e12 * 1e3, rel=1e-12)

@@ -1,6 +1,9 @@
 """Port vs JAX package: the sequenced training path of ET-STGCNN and ET-SGCN,
-and DropEdge's stream on ET-DMRGCN (micro_batches, bitwise resume, masks
-that are no checkpoint leaves).
+DropEdge's stream on ET-DMRGCN (micro_batches, bitwise resume, masks that
+are no checkpoint leaves), and the steps of ET-GP-Graph-STGCNN,
+ET-GP-Graph-SGCN and ET-Social-Implicit (the NaN gradient of `group_cnn`,
+the zero gradient of `noise_w`, the three streams' BN statistics,
+micro_batches) with groups and zones formed.
 
 Both trainers get the same synthetic splits; the JAX trainer fits the
 descriptor and writes a checkpoint, the port loads it, so both start from
@@ -82,9 +85,10 @@ def _torch_args(batch):
                  (batch.obs, batch.pred, batch.ped_valid, batch.scene_valid))
 
 
-def _jax_loss_grads_stats(jtr, batch):
+def _jax_loss_grads_stats(jtr, batch, jit=False):
     """The JAX trainer's batched step loss (trainer.py `batched_loss`), its
-    gradient and the weighted BN statistics."""
+    gradient and the weighted BN statistics; `jit` compiles it first (the
+    GP-Graph models' eager step takes longer than their compile)."""
     obs, pred, valid, scene_valid = _jax_args(batch)
 
     def batched_loss(p):
@@ -100,7 +104,8 @@ def _jax_loss_grads_stats(jtr, batch):
         losses = jnp.nan_to_num(losses, nan=0.0, posinf=0.0, neginf=0.0) * w
         return losses.sum() / jtr.cfg.batch_size, _tree_weighted_mean(new_bs, w)
 
-    (loss, new_bs), grads = jax.value_and_grad(batched_loss, has_aux=True)(jtr.params)
+    grad_fn = jax.value_and_grad(batched_loss, has_aux=True)
+    (loss, new_bs), grads = (jax.jit(grad_fn) if jit else grad_fn)(jtr.params)
     return float(loss), grads, new_bs
 
 
@@ -577,6 +582,256 @@ def test_drop_edge_fit_resumes_bitwise(tmp_path):
     assert all(torch.equal(v, want[k]) for k, v in second.model.state_dict().items())
     assert torch.equal(second.dropout_generator.get_state(),
                        straight.dropout_generator.get_state())
+
+
+# ------------------------------------- groups and zones (GP-Graph, Implicit)
+GROUP_ZONE = ("gpgraphstgcnn", "gpgraphsgcn", "implicit")
+
+
+def _predictor_inputs(ttr, batch):
+    """The (c_obs, obs_ori) the port's projection hands its predictor on
+    `batch`, as numpy arrays."""
+    seen, own = [], ttr._predictor_fn
+
+    def noting(c_obs, obs_ori, aux):
+        seen.append((c_obs.detach().numpy().copy(), obs_ori.detach().numpy().copy()))
+        return own(c_obs, obs_ori, aux)
+
+    ttr._predictor_fn = noting
+    try:
+        with torch.no_grad():
+            ttr._chunk_loss(*_torch_args(batch))
+    finally:
+        del ttr._predictor_fn
+    return seen[0]
+
+
+def _groups_and_zones(ttr, batch, jtr=None):
+    """Make grouping or zoning happen on `batch`, on the port's trainer and
+    on the JAX one alike. GP-Graph: `th` at the midpoint between two
+    adjacent distinct pair distances of the JAX `dist_mat` of the block's
+    predictor inputs (no distance within rounding of it), asserting a group
+    of two or more and a singleton. Implicit: the first column of both
+    U_obs scaled by 0.03, which moves the first coefficients (|c_0| ~1-13
+    on these splits, all in the last zone) over the middle zones, asserting
+    two zones used and one empty; and every cell's global_w and local_w
+    drawn in [0.5, 1.5] (the init's 0 gives every conv of the cells a zero
+    gradient). Returns Implicit's set of zones used."""
+    from tests import test_torch_gpgraph as tg
+    from eigentrajectory_tpu_torch.models import implicit as timp
+
+    name = ttr.cfg.baseline
+    valid = batch.ped_valid
+    if name == "implicit":
+        def scaled(et):
+            def basis(b):
+                u = b.U_obs * 1.0
+                u = u.at[:, 0].multiply(0.03) if hasattr(u, "at") else \
+                    torch.cat([u[:, :1] * 0.03, u[:, 1:]], dim=1)
+                return type(b)(u, b.U_pred)
+            return et._replace(basis_m=basis(et.basis_m), basis_s=basis(et.basis_s))
+
+        ttr.et = scaled(ttr.et)
+        if jtr is not None:
+            jtr.et = scaled(jtr.et)
+        rng = np.random.default_rng(5)
+        drawn = {f"cell_{i}": {w: rng.uniform(0.5, 1.5, size=(1,)).astype(np.float32)
+                               for w in ("global_w", "local_w")} for i in range(len(timp.BINS))}
+        with torch.no_grad():
+            for cell, ws in drawn.items():
+                for w, value in ws.items():
+                    ttr.model.get_parameter(f"{cell}.{w}").copy_(torch.from_numpy(value))
+        if jtr is not None:
+            jtr.params = {**jtr.params, **{cell: {**jtr.params[cell], **{
+                w: jnp.asarray(value) for w, value in ws.items()}} for cell, ws in drawn.items()}}
+        c_obs, _ = _predictor_inputs(ttr, batch)
+        zone = timp.zones(torch.from_numpy(c_obs)[:, None]).numpy()
+        edges = np.array(timp.BINS[1:], np.float32)
+        assert np.abs(np.abs(c_obs[:, 0][valid])[:, None] - edges).min() > 1e-4
+        return _assert_zones_spread(zone, valid)
+    jm = {"gpgraphstgcnn": tg.jstgcnn, "gpgraphsgcn": tg.jsgcn}[name]
+    gcn = {"kernel": ttr.model.group_gen.group_cnn.weight.detach().numpy(),
+           "bias": ttr.model.group_gen.group_cnn.bias.detach().numpy()}
+    c_obs, ori = _predictor_inputs(ttr, batch)
+    dist = tg.jax_dist_mats(jm, gcn, c_obs, ori, valid)
+    th = tg.threshold(dist, valid)
+    tg.assert_groups_form(tg.jax_ranks(dist, th, valid)[0], valid)
+    with torch.no_grad():
+        ttr.model.group_gen.th.fill_(th)
+    if jtr is not None:
+        jtr.params = {**jtr.params, "group_gen": {**jtr.params["group_gen"],
+                                                  "th": jnp.asarray([th], jnp.float32)}}
+
+
+def _assert_zones_spread(zone, valid):
+    used = set(zone[valid].tolist())
+    assert 2 <= len(used) < 4, used
+    return used
+
+
+def _assert_cells_learn(grads, used):
+    """Implicit: the convs of the cells of the zones used, and of no other,
+    have a nonzero gradient."""
+    for conv in ("feat", "tpcnn", "ped.feat.conv", "ped.tpcnn.conv"):
+        learning = {i for i in range(4) if np.abs(grads[f"cell_{i}.{conv}.weight"]).max() > 0}
+        assert learning == used, (conv, learning, used)
+
+
+@pytest.fixture
+def jitted_jax_init(monkeypatch):
+    """Have the JAX trainer initialise the group and zone models jitted (an
+    eager init of the GP-Graph SGCN takes ~10 s on the CPU); the variables
+    are the same."""
+    from eigentrajectory_tpu.models import get_baseline as jax_baseline
+
+    for name in GROUP_ZONE:
+        module = jax_baseline(name)
+
+        def make_model(cfg, make=module.make_model):
+            model = make(cfg)
+            init = model.init
+            object.__setattr__(model, "init", lambda rngs, *args, train=False: jax.jit(
+                lambda r, *a: init(r, *a, train=train))(rngs, *args))
+            return model
+
+        monkeypatch.setattr(module, "make_model", make_model)
+
+
+@pytest.mark.parametrize("baseline", GROUP_ZONE)
+def test_group_and_zone_steps_match_jax(tmp_path, baseline, jitted_jax_init):
+    """One step on a block of 4 rows, the last two padding scenes, from the
+    weights and ET parameters of the JAX trainer's checkpoint: loss within
+    1e-5 relative, gradients (atol 1e-5, rtol 1e-4), GP-Graph-STGCNN's BN
+    statistics after its three streams within 1e-5 of the JAX step's.
+    GP-Graph's `group_cnn` gradient is NaN on both sides (the norm's
+    gradient at a zero difference) and Implicit's `noise_w` gets a zero one,
+    not None; the optimizer zeroes the NaN as optax.zero_nans does, and
+    both tensors move by the weight decay alone, on both sides."""
+    jtr, ttr = _pair(baseline, tmp_path)
+    batch = _tail_block(jtr.data_train, jtr.n_max)
+    used = _groups_and_zones(ttr, batch, jtr)
+    want_loss, want_grads, want_bs = _jax_loss_grads_stats(jtr, batch, jit=True)
+    ttr.model.train()
+    loss = ttr.loss_and_grads(*_torch_args(batch))
+    ttr.model.eval()
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+    want = _by_torch_name(ttr, want_grads)
+    got = {n: p.grad.numpy() for n, p in ttr.model.named_parameters() if p.grad is not None}
+    assert set(got) == set(want)
+    nan = {n for n in want if np.isnan(want[n]).any()}
+    assert nan == ({"group_gen.group_cnn.weight", "group_gen.group_cnn.bias"}
+                   if baseline != "implicit" else set())
+    if baseline == "implicit":
+        _assert_cells_learn(want, used)
+    for name in want:
+        if name in nan:
+            assert np.isnan(want[name]).all() and np.isnan(got[name]).all(), name
+        else:
+            np.testing.assert_allclose(got[name], want[name], atol=1e-5, rtol=1e-4,
+                                       err_msg=name)
+    flat = traverse_util.flatten_dict(jax.tree_util.tree_map(np.asarray, want_bs), sep=".")
+    stats = _bn_stats(ttr)
+    assert len(flat) == len(stats) == (6 if baseline == "gpgraphstgcnn" else 0)
+    for key, value in flat.items():
+        name = key.replace(".mean", ".running_mean").replace(".var", ".running_var")
+        np.testing.assert_allclose(stats[name].numpy(), value, atol=1e-5, rtol=1e-5,
+                                   err_msg=key)
+
+    # The optimizer: JAX's chain on its gradients, the port's on its own.
+    watched = {n for n in want if n in nan or "noise_w" in n}
+    assert watched
+    before = {n: p.detach().clone() for n, p in ttr.model.named_parameters() if n in watched}
+    if baseline == "implicit":
+        with torch.no_grad():
+            for n in watched:
+                ttr.model.get_parameter(n).fill_(0.5)
+                before[n].fill_(0.5)
+        for cell in jtr.params:
+            jtr.params = {**jtr.params, cell: {**jtr.params[cell],
+                                               "noise_w": jnp.asarray([0.5], jnp.float32)}}
+        assert all(not got[n].any() for n in watched)
+    updates, _ = jax.jit(jtr.tx.update)(want_grads, jtr.opt_state, jtr.params)
+    jax_new = _by_torch_name(ttr, optax_apply(jtr.params, updates))
+    ttr.apply_gradients()
+    decay = 1.0 - ttr.cfg.lr * ttr.cfg.weight_decay
+    for n in watched:
+        p = ttr.model.get_parameter(n)
+        assert not p.grad.any(), n
+        np.testing.assert_allclose(p.detach().numpy(), before[n].numpy() * decay, rtol=1e-6,
+                                   err_msg=n)
+        np.testing.assert_allclose(p.detach().numpy(), jax_new[n], rtol=1e-6, err_msg=n)
+
+
+def optax_apply(params, updates):
+    import optax
+
+    return optax.apply_updates(params, updates)
+
+
+@pytest.mark.parametrize("baseline", GROUP_ZONE)
+def test_group_and_zone_micro_batches_equal_the_whole_block(tmp_path, baseline):
+    """micro_batches 2 gives the loss, gradients and (GP-Graph-STGCNN) BN
+    statistics of 1 on a block of 8 rows with 3 padding scenes, groups and
+    zones formed: the relabel is per scene, and the three streams' BN
+    updates average by valid scenes chunk by chunk (f32 sums in another
+    order: 1e-6 relative, 1e-6 of a tensor's scale near 0; NaN where NaN,
+    the whole of `group_cnn`'s gradient)."""
+    splits = _splits()
+    whole = _torch_trainer(baseline, tmp_path, splits=splits, batch_size=8, micro_batches=1)
+    whole.init_descriptor()
+    batch = pad_scenes(whole.data_train, [0, 1, 2, 3, 4], whole.n_max, 8)
+    used = _groups_and_zones(whole, batch)
+    split = _torch_trainer(baseline, tmp_path, splits=splits, batch_size=8, micro_batches=2)
+    split.model.load_state_dict(whole.model.state_dict())
+    split.et = whole.et
+    results = []
+    for tr in (whole, split):
+        tr.model.train()
+        loss = tr.loss_and_grads(*_torch_args(batch))
+        tr.model.eval()
+        results.append((float(loss), {n: p.grad for n, p in tr.model.named_parameters()
+                                      if p.grad is not None}, _bn_stats(tr)))
+    (l1, g1, s1), (l2, g2, s2) = results
+    if baseline == "implicit":
+        _assert_cells_learn({n: g.numpy() for n, g in g1.items()}, used)
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    assert set(g1) == set(g2) and len(s1) == (6 if baseline == "gpgraphstgcnn" else 0)
+    # A conv bias in front of a BatchNorm has a true gradient of 0 and holds
+    # rounding noise of ~1e-8 of the largest entry of any gradient (the
+    # chunks sum the BN's terms in another order): a tensor's scale is at
+    # least 1e-2 of that entry.
+    floor = 1e-2 * max(float(g.abs().max()) for g in g1.values() if torch.isfinite(g).all())
+    for name, g in g1.items():
+        if torch.isnan(g).any():
+            assert torch.isnan(g2[name]).all() and torch.isnan(g).all(), name
+            continue
+        np.testing.assert_allclose(g2[name].numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-6 * max(float(g.abs().max()), floor), err_msg=name)
+    for name in s1:
+        np.testing.assert_allclose(s2[name].numpy(), s1[name].numpy(), atol=1e-6, rtol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("baseline", GROUP_ZONE)
+def test_group_and_zone_models_fit_test_and_predict_on_the_cpu(tmp_path, baseline):
+    """init_descriptor(), fit(2) with micro_batches 2, load_model() + test()
+    and ETPredictor.predict() of a two-scene request: finite throughout, a
+    fresh trainer on the checkpoint gives the same means."""
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+
+    tr = _torch_trainer(baseline, tmp_path, tag="fit", micro_batches=2)
+    tr.init_descriptor()
+    tr.fit(num_epochs=2, verbose=False)
+    assert all(np.isfinite(v) for v in tr.log["train_loss"] + tr.log["val_loss"])
+    tr.load_model()
+    res = tr.test()
+    assert all(np.isfinite(v) for v in res.values())
+    fresh = _torch_trainer(baseline, tmp_path, tag="fit")
+    fresh.load_model()
+    assert fresh.test() == res
+    obs = tr.data_test.obs_traj[:7]
+    out = ETPredictor(tr, bucket=8).predict(obs, np.repeat([0, 1], [4, 3]))
+    assert out.shape == (20, 7, 12, 2) and np.isfinite(out).all()
 
 
 # ------------------------------------------------------------------ CLI
