@@ -150,8 +150,32 @@ CUDA toolkit. It
    (320, 57) and (301, 128). A failed card-vs-CPU check of these models
    prints the count of pair distances within 4 ulps of th (or of |c_0|
    within 4 ulps of a bin edge) in the case;
-12. prints a JSON line with the three kernels' numbers, then as its last
-   line {"ok": true, "device": {...}}.
+12. data parallelism: spawns DP_WORLD = 2 ranks, NCCL with a card each
+   where the machine has two, else both on cuda:0 with gloo (printed:
+   collectives go through the host, every kernel and model op runs on the
+   card), and runs the same path at world 1 in this process: ET-STGCNN
+   (hotel checkpoint) `test()` of the 320 x 57 block (fused_recon_metrics
+   once a rank, means within rtol 1e-5 / atol 1e-6), one step on the first
+   128 x 57 block and on the last (21 real scenes; the second rank holds
+   padding alone), ET-PECNet (univ checkpoint) one step on a packed batch
+   split by scenes, ET-DMRGCN one step with DropEdge on, ET-GP-Graph-STGCNN
+   one step at micro_batches 4 (th midway between two pair distances,
+   group_cnn's gradient NaN on both). Each step is held to world 1 running
+   the block in the chunks the ranks hold (micro_batches x 2, the same
+   arithmetic; the distance of both from the block in one piece is
+   printed): loss within 1e-5 relative, gradients within 5e-5 global
+   relative L2 and rtol 2e-3 / atol 1e-5, NaN where NaN, BN statistics
+   within 1e-6 of their scale (at least 1), DropEdge masks and the dropout
+   stream bitwise, every rank the same step. `fit(2)` train losses within
+   2e-3 relative of world 1, and `fit(1)` + resume to 2 within 1e-5 of the
+   straight run (not bitwise on the card); the step's median time at world
+   1 and 2 and `test()`'s wall. Then `predict()` request (b) through
+   `ETPredictor(mesh=)` over every visible card and over cuda:0 named
+   twice, within 1e-5 of `mesh=None`, fused_reconstruct once a replica; and
+   the NCCL branch of the process-group helpers in a group of one;
+13. prints a JSON line with the three kernels' numbers (the launches of
+   every path, step 12's ranks' included), then as its last line
+   {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
 (ET-PECNet's, ET-AgentFormer's, ET-DMRGCN's, ET-Graph-TERN's and step 11's
@@ -2338,6 +2362,374 @@ def _groups_zones_phase(card, recon, group, seq_data, profile_dir):
     return launches, max(errs), times
 
 
+# Step 12: data parallelism. DP_WORLD ranks spawned on the card(s), each
+# check held against the single-card run of the same call.
+DP_WORLD, DP_TIMED_STEPS = 2, 10
+
+
+def _dp_step(tr, batch, noted):
+    """One step's loss, gradients and BN statistics on the whole `batch` (a
+    rank's part of it), on the host, with the DropEdge masks used."""
+    import torch
+
+    tr.model.train()
+    noted.clear()
+    args, part = tr.step_args(batch)
+    loss = tr.loss_and_grads(*args, part=part)
+    tr.model.eval()
+    host = lambda x: x.detach().to("cpu", copy=True)
+    return {"loss": float(loss),
+            "grads": {n: host(p.grad) for n, p in tr.model.named_parameters()
+                      if p.grad is not None},
+            "stats": {k: host(v) for k, v in tr.model.state_dict().items() if "running_" in k},
+            # The masks of this process's rows (its chunks' one after another).
+            "keeps": [host(torch.cat(rows)) for rows in zip(*noted)],
+            "dropout_state": tr.dropout_generator.get_state()}
+
+
+def _dp_cases(world, tmp, th, split=1):
+    """Step 12's path at `world` ranks (this process's rank of them; world 1
+    runs alone): steps of ET-STGCNN (hotel checkpoint, first and 21-scene
+    last block), ET-PECNet (univ checkpoint, first packed batch), ET-DMRGCN
+    (DropEdge on) and ET-GP-Graph-STGCNN (micro_batches 4, th given), the
+    step time, test() of the 320 x 57 block, fit(2) and fit(1) + resume to
+    2. `split` multiplies the sequenced configurations' micro_batches (at
+    world 1, `split` = DP_WORLD runs each block in the chunks the ranks
+    hold). Returns the results on the host and the kernel launches."""
+    import torch
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+    from eigentrajectory_tpu_torch.interop import params_from_jax, read_flax_msgpack
+    from eigentrajectory_tpu_torch.ops import group, recon
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+    from eigentrajectory_tpu_torch.train import trainer as trainer_module
+
+    def cfg(model, dataset, **kw):
+        c = load_config(os.path.join(REPO, "configs", f"eigentrajectory-{model}-{dataset}.json"),
+                        **{"checkpoint_dir": CKPT_DIR, "n_max_peds": N_MAX,
+                           "mesh_data_axis": world, **kw})
+        return c.replace(micro_batches=c.micro_batches * split)
+
+    noted, set_keeps = [], trainer_module.set_edge_keeps
+
+    def noting(model, keeps):
+        if keeps:
+            noted.append(keeps)
+        return set_keeps(model, keeps)
+
+    trainer_module.set_edge_keeps = noting
+    recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = group.LAUNCHES = 0
+    out = {}
+    try:
+        seq = _sequenced_splits(make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=0))
+        st = ETTorchTrainer(cfg("stgcnn", "hotel"), tag="parity", datasets=seq)
+        st.load_model()
+        out["test"] = st.test(eval_batch=EVAL_BATCH)
+        out["test_launches"] = recon.LAUNCHES
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.test(eval_batch=EVAL_BATCH)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["test_s"] = _median(walls)
+        blocks = list(st.train_batches(0))
+        if int(blocks[-1].scene_valid.sum()) != TRAIN_SCENES % TRAIN_BATCH:
+            raise AssertionError("the last block must hold the 21 real scenes")
+        out["stgcnn_first"] = _dp_step(st, blocks[0], noted)
+        out["stgcnn_last"] = _dp_step(st, blocks[-1], noted)
+
+        pe = ETTorchTrainer(load_config(os.path.join(REPO, "configs",
+                                                     "eigentrajectory-pecnet-univ.json"),
+                                        checkpoint_dir=CKPT_DIR, mesh_data_axis=world),
+                            tag="parity", datasets=_collated_splits())
+        pe.load_model()
+        out["pecnet"] = _dp_step(pe, next(iter(pe.train_batches(0))), noted)
+
+        dm = ETTorchTrainer(cfg("dmrgcn", "eth"), tag="dp", datasets=seq)
+        dm._set_et(st.et)
+        out["dmrgcn"] = _dp_step(dm, blocks[0], noted)
+
+        gp = ETTorchTrainer(cfg("gpgraphstgcnn", "hotel"), tag="dp", datasets=seq)
+        if gp.cfg.micro_batches != 4 * split:
+            raise AssertionError("ET-GP-Graph-STGCNN's hotel configuration has micro_batches 4")
+        gp._set_et(st.et)
+        with torch.no_grad():
+            gp.model.group_gen.th.fill_(th)
+        out["gpgraph"] = _dp_step(gp, blocks[0], noted)
+
+        # The step time: the epoch's first blocks, a synchronize at each end.
+        st.model.train()
+        times = []
+        for batch in (blocks * 2)[:DP_TIMED_STEPS]:
+            args, part = st.step_args(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.train_step(*args, part=part)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        st.model.eval()
+        out["step_ms"] = times
+        if world > 1:
+            # The step's all-reduce alone: a buffer of its size, synchronized.
+            from eigentrajectory_tpu_torch import parallel
+
+            n = sum(p.numel() for p in st._called) + \
+                sum(b.numel() for b in st.model.buffers()) + 2
+            buf, times = torch.zeros(n, device=st.device), []
+            for _ in range(DP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                parallel.all_reduce_sum_(buf)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["all_reduce"] = (n, times)
+
+        hotel = params_from_jax(read_flax_msgpack(
+            os.path.join(CKPT_DIR, "parity", "hotel", "model_best.msgpack")))
+        logs = {}
+        for tag, runs in (("fit", ((2, False, 0),)), ("resume", ((1, False, 1), (2, True, 0)))):
+            for epochs, resume, every in runs:
+                tr = ETTorchTrainer(cfg("stgcnn", "hotel", checkpoint_dir=tmp), tag=tag,
+                                    datasets=seq)
+                tr.load_state(*hotel)
+                tr.fit(epochs, verbose=False, resume=resume, checkpoint_every=every)
+            logs[tag] = dict(tr.log)
+        out["fit"], out["resume"] = logs["fit"], logs["resume"]
+    finally:
+        trainer_module.set_edge_keeps = set_keeps
+    out["launches"] = {"recon_metrics": recon.LAUNCHES,
+                       "reconstruct": recon.RECONSTRUCT_LAUNCHES, "group": group.LAUNCHES}
+    return out
+
+
+def _dp_rank(rank, world, init, share_card, tmp, th):
+    """A rank of step 12: joins the group (NCCL with a card of its own, or
+    gloo on one shared card), runs `_dp_cases` and saves its results."""
+    import torch
+    from eigentrajectory_tpu_torch import parallel
+
+    parallel.init_process_group(rank, world, init, device="cuda", share_card=share_card)
+    try:
+        torch.save(_dp_cases(world, tmp, th), os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        parallel.destroy()
+
+
+def _dp_threshold(th_trainer, block):
+    """GP-Graph's th midway between two adjacent distinct pair distances of
+    the block's valid pairs at their 0.3 quantile, with the gap between them."""
+    import numpy as np
+    import torch
+
+    seen, distances = [], th_trainer.model.group_gen.distances
+    th_trainer.model.group_gen.distances = \
+        lambda v, valid: seen.append(distances(v, valid)) or seen[-1]
+    try:
+        with torch.no_grad():
+            th_trainer._chunk_loss(*th_trainer._to_device(block))
+    finally:
+        del th_trainer.model.group_gen.distances
+    dist, valid = seen[0].cpu().numpy(), block.ped_valid
+    pairs = np.tril(np.ones(dist.shape[1:], bool), -1)[None] & valid[:, :, None] & valid[:, None]
+    values = np.unique(dist[pairs])
+    i = int(0.3 * (len(values) - 1))
+    return float((values[i] + values[i + 1]) / 2), float(values[i + 1] - values[i])
+
+
+def _step_distance(want, got):
+    """(max abs, global relative L2) of the gradients (NaN entries left
+    out), max of the BN statistics' differences over their scale (at least
+    1, the checkpoints' variances reach the hundreds)."""
+    import torch
+
+    v1 = torch.cat([g.double().reshape(-1) for g in want["grads"].values()]).nan_to_num()
+    v2 = torch.cat([got["grads"][n].double().reshape(-1) for n in want["grads"]]).nan_to_num()
+    stats = max([float((got["stats"][k] - v).abs().max() / max(1.0, float(v.abs().max())))
+                 for k, v in want["stats"].items()] or [0.0])
+    return float((v1 - v2).abs().max()), float((v1 - v2).norm() / v1.norm()), stats
+
+
+def _dp_close(label, want, got, unsplit=None, rtol=2e-3, atol=1e-5):
+    """Max abs error of a step (loss, gradients, BN statistics, masks) of
+    `got` against `want`: gradients within 5e-5 global relative L2 and every
+    entry within rtol / atol (NaN where NaN), loss within 1e-5 relative, BN
+    statistics within 1e-6 of their scale (at least 1), DropEdge masks and
+    the dropout generator's state bitwise. Where `want` ran the block in the
+    ranks' chunks, prints the distances of both from the `unsplit` run."""
+    import torch
+
+    if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+        raise AssertionError(f"{label}: loss {got['loss']} vs {want['loss']}")
+    if set(got["grads"]) != set(want["grads"]):
+        raise AssertionError(f"{label}: other parameters got gradients")
+    _, rel, stats = _step_distance(want, got)
+    err = 0.0
+    for name, g in want["grads"].items():
+        h = got["grads"][name]
+        if not torch.equal(torch.isnan(g), torch.isnan(h)):
+            raise AssertionError(f"{label}: {name} NaN at other entries")
+        ok = ~torch.isnan(g)
+        d = (h[ok] - g[ok]).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if (d > atol + rtol * g[ok].abs()).any():
+            raise AssertionError(f"{label}: gradient {name} off by {float(d.max()):.3e}")
+    if rel >= 5e-5 or stats > 1e-6:
+        raise AssertionError(f"{label}: gradient rel-L2 {rel:.3e}, BN statistics {stats:.3e}")
+    if len(got["keeps"]) != len(want["keeps"]) or not all(
+            torch.equal(a, b) for a, b in zip(got["keeps"], want["keeps"])) or \
+            not torch.equal(got["dropout_state"], want["dropout_state"]):
+        raise AssertionError(f"{label}: DropEdge masks or the dropout stream differ")
+    print(f"  {label}: loss {got['loss']:.6f} (world 1 {want['loss']:.6f}); gradients max abs "
+          f"err {err:.3e}, rel-L2 {rel:.3e}; BN statistics {stats:.3e} of scale"
+          + (f"; DropEdge masks bitwise ({len(want['keeps'])} layers)" if want["keeps"] else ""),
+          flush=True)
+    if unsplit is not None:
+        print("    from world 1 in one piece (max abs, rel-L2, BN): world %d %.3e, %.3e, %.3e; "
+              "world 1 in the ranks' chunks %.3e, %.3e, %.3e" % (
+                  DP_WORLD, *_step_distance(unsplit, got), *_step_distance(unsplit, want)),
+              flush=True)
+    return err
+
+
+def _data_parallel_phase(card, recon, seq_data):
+    """Step 12: DP_WORLD ranks against the single card, and the predictor
+    over a mesh. Returns the kernels' launches of the sharded path (every
+    rank's) and of the mesh predictor."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from eigentrajectory_tpu_torch import parallel
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    share = cards < DP_WORLD
+    print(f"step 12: {DP_WORLD} ranks, " + (
+        f"both on cuda:0 with gloo ({cards} card visible): collectives go through the host, "
+        f"every kernel and model op runs on the card" if share else
+        f"NCCL, a card each of {cards}"), flush=True)
+    splits = _sequenced_splits(seq_data)
+    gp_cfg = load_config(
+        os.path.join(REPO, "configs", "eigentrajectory-gpgraphstgcnn-hotel.json"),
+        checkpoint_dir=CKPT_DIR, n_max_peds=N_MAX)
+    st = ETTorchTrainer(load_config(os.path.join(REPO, "configs",
+                                                 "eigentrajectory-stgcnn-hotel.json"),
+                                    checkpoint_dir=CKPT_DIR, n_max_peds=N_MAX),
+                        tag="parity", datasets=splits)
+    st.load_model()
+    gp = ETTorchTrainer(gp_cfg, tag="dp", datasets=splits)
+    gp._set_et(st.et)
+    th, gap = _dp_threshold(gp, next(iter(gp.train_batches(0))))
+    print(f"  GP-Graph th {th:.6g} midway in a gap of {gap:.3e} between pair distances",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "w1"))
+        t0 = time.perf_counter()
+        # The sequenced steps are held to world 1 running each block in the
+        # chunks the ranks hold (micro_batches x DP_WORLD): the same
+        # arithmetic, so what is left is what the sharding adds. On the card
+        # the chunks' cuDNN calls round otherwise than one call over the
+        # block; the distance of both from the block in one piece is printed.
+        want = _dp_cases(1, os.path.join(tmp, "w1"), th, split=DP_WORLD)
+        t1 = time.perf_counter() - t0
+        os.makedirs(os.path.join(tmp, "whole"))
+        whole_block = _dp_cases(1, os.path.join(tmp, "whole"), th)
+        t0 = time.perf_counter()
+        init = f"file://{os.path.join(tmp, 'init')}"
+        mp.spawn(_dp_rank, args=(DP_WORLD, init, share, tmp, th), nprocs=DP_WORLD)
+        tn = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    got = ranks[0]
+    print(f"  world 1 ran {t1:.1f} s in this process; world {DP_WORLD} {tn:.1f} s, the ranks' "
+          f"start included", flush=True)
+
+    errs = {}
+    for key, label in (("stgcnn_first", "ET-STGCNN step, first 128 x 57 block"),
+                       ("stgcnn_last", "ET-STGCNN step, last block (21 real scenes)"),
+                       ("pecnet", "ET-PECNet step, first packed batch (scenes split)"),
+                       ("dmrgcn", "ET-DMRGCN step, DropEdge on"),
+                       ("gpgraph", "ET-GP-Graph-STGCNN step, micro_batches 4")):
+        # The ranks' DropEdge masks, row after row, are the whole block's.
+        keeps = [torch.cat(rows) for rows in zip(*(r[key]["keeps"] for r in ranks))]
+        errs[key] = _dp_close(label, want[key], {**got[key], "keeps": keeps},
+                              unsplit=None if key == "pecnet" else whole_block[key])
+        for other in ranks[1:]:      # the all-reduce leaves every rank the same step
+            if other[key]["loss"] != got[key]["loss"] or not all(
+                    torch.allclose(other[key]["grads"][n], g, rtol=0, atol=0, equal_nan=True)
+                    for n, g in got[key]["grads"].items()):
+                raise AssertionError(f"{key}: the ranks hold different steps")
+    test_err = max(abs(got["test"][k] - v) for k, v in want["test"].items())
+    if any(abs(got["test"][k] - v) > 1e-6 + 1e-5 * abs(v) for k, v in want["test"].items()):
+        raise AssertionError(f"test(): world {DP_WORLD} {got['test']} vs world 1 {want['test']}")
+    launches = [r["test_launches"] for r in ranks]
+    if want["test_launches"] != 1 or launches != [1] * DP_WORLD:
+        raise AssertionError(f"test(): fused_recon_metrics launches {want['test_launches']} / "
+                             f"{launches}, expected 1 a rank")
+    fit_err = float(np.max(np.abs(np.subtract(got["fit"]["train_loss"],
+                                              want["fit"]["train_loss"])) /
+                           np.abs(want["fit"]["train_loss"])))
+    if fit_err > 2e-3 or not all(math.isfinite(v) for v in got["fit"]["val_loss"]):
+        raise AssertionError(f"fit(2): world {DP_WORLD} {got['fit']} vs world 1 {want['fit']}")
+    resume_err = float(np.max(np.abs(np.subtract(got["resume"]["train_loss"],
+                                                 got["fit"]["train_loss"])) /
+                              np.abs(got["fit"]["train_loss"])))
+    # Not bitwise on the card (cuDNN's weight gradients add in no fixed
+    # order, and ET-STGCNN's 1/d adjacency amplifies it): 1e-5 relative.
+    if resume_err > 1e-5:
+        raise AssertionError(f"fit(1) + resume: {got['resume']} vs fit(2) {got['fit']}")
+    print(f"  test() of the {EVAL_BATCH} x {N_MAX} block: max abs err {test_err:.3e} over "
+          f"{sorted(want['test'])}, fused_recon_metrics once a rank ({launches}); "
+          f"fit(2) train losses {got['fit']['train_loss']} within {fit_err:.3e} relative of "
+          f"world 1; fit(1) + resume within {resume_err:.3e} of fit(2)", flush=True)
+    print(f"[{card}] step 12 world {DP_WORLD} ({'gloo' if share else 'nccl'}): ET-STGCNN step "
+          f"median {_median(got['step_ms']):.3f} ms (host clock, synchronized, "
+          f"{DP_TIMED_STEPS} steps; world 1 {_median(whole_block['step_ms']):.3f} ms); test() "
+          f"median of 5 {got['test_s'] * 1e3:.3f} ms (world 1 "
+          f"{whole_block['test_s'] * 1e3:.3f} ms); the step's all-reduce alone "
+          f"({got['all_reduce'][0]} floats) {_median(got['all_reduce'][1]):.3f} ms", flush=True)
+
+    # predict() request (b) over a mesh of every visible card, and of cuda:0 twice.
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    whole = (seq_data.obs_traj, np.repeat(np.arange(N_SCENES), seq_data.num_peds_in_seq))
+    ref = ETPredictor(st, bucket=BUCKET).predict(*whole)
+    for mesh in (parallel.make_mesh(), parallel.make_mesh(devices=["cuda:0", "cuda:0"])):
+        predictor = ETPredictor(st, bucket=BUCKET, mesh=mesh)
+        recon.RECONSTRUCT_LAUNCHES = 0
+        out = predictor.predict(*whole)
+        n = recon.RECONSTRUCT_LAUNCHES
+        err = float(np.abs(out - ref).max())
+        if n != len(mesh) or out.shape != ref.shape or err > 1e-5:
+            raise AssertionError(f"predict() over {mesh}: {n} launches, err {err:.3e}")
+        counts["reconstruct"] += n
+        errs[f"predict {len(mesh)}"] = err
+        print(f"  predict() (b) over {[str(d) for d in mesh]}: max abs err {err:.3e} against "
+              f"mesh=None, fused_reconstruct {n} launches", flush=True)
+    # The NCCL branch of the process-group helpers (what ranks with a card
+    # each take), in a group of one on cuda:0.
+    with tempfile.TemporaryDirectory() as tmp:
+        group = parallel.init_process_group(0, 1, f"file://{os.path.join(tmp, 'init')}",
+                                            device="cuda")
+        try:
+            buf = torch.arange(5.0, device="cuda")
+            parallel.all_reduce_sum_(buf)
+            parallel.barrier()
+            if group.backend != "nccl" or not torch.equal(buf.cpu(), torch.arange(5.0)) or \
+                    parallel.broadcast_object({"x": 1}) != {"x": 1}:
+                raise AssertionError(f"NCCL group of one: {group}, {buf}")
+        finally:
+            parallel.destroy()
+    print(f"  NCCL group of one on {group.device}: all-reduce, broadcast and barrier ran",
+          flush=True)
+    print(f"[{card}] step 12 ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -2483,6 +2875,12 @@ def main(argv):
                                                              profile_dir)
     recon_metrics_launches += counts["recon_metrics"]
     reconstruct_launches += counts["reconstruct"]
+
+    # --- 12. data parallelism: ranks against the single card; the mesh predictor ---
+    dp_counts = _data_parallel_phase(card, recon, data)
+    recon_metrics_launches += dp_counts["recon_metrics"]
+    reconstruct_launches += dp_counts["reconstruct"]
+    counts["group"] += dp_counts["group"]
 
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",

@@ -20,8 +20,10 @@ ET-LB-EBM and ET-AgentFormer, collated):
   interop         flax msgpack checkpoints <-> PyTorch modules and tensors;
                   the reference's .pth checkpoints imported
   train           training + evaluation engine (`ETTorchTrainer`:
-                  `init_descriptor()`, `fit()`, `load_model()`, `test()`)
-  inference       serving API (`ETPredictor.predict()`)
+                  `init_descriptor()`, `fit()`, `load_model()`, `test()`),
+                  data-parallel over `mesh_data_axis` ranks
+  inference       serving API (`ETPredictor.predict()`, over a device mesh)
+  parallel        device mesh, process group, all-reduce, dry run
   utils           step timer and torch.profiler helpers
   trainval        the CLI (`python -m eigentrajectory_tpu_torch.trainval`)
 

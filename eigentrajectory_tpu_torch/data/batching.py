@@ -11,6 +11,12 @@ The counterpart of `eigentrajectory_tpu/data/batching.py`:
 
 The arrays are bitwise equal to the JAX package's; the trainer moves them to
 the device.
+
+A data-parallel run plans its shards here, on the host: every rank holds
+the whole split, draws the same batches and takes its part of each
+(`shard_rows`: a contiguous range of a block's scene rows; `shard_scenes`:
+whole scenes of a packed batch, repacked into a row of their own), so no
+data is exchanged.
 """
 from __future__ import annotations
 
@@ -205,3 +211,54 @@ def scene_gather(scene_ids: np.ndarray) -> Tuple[np.ndarray, ...]:
         inv_g[idx] = g
         inv_i[idx] = np.arange(len(idx))
     return gather, gmask, inv_g, inv_i
+
+
+def shard_rows(batch: SceneBatch, rank: int, world: int) -> SceneBatch:
+    """Rank `rank`'s scene rows of a block: [rank * B / world, (rank + 1) *
+    B / world). B must be divisible by `world`."""
+    b = batch.obs.shape[0]
+    if b % world:
+        raise ValueError(f"a block of {b} scenes does not split over {world} ranks")
+    lo, hi = rank * b // world, (rank + 1) * b // world
+    return SceneBatch(*(getattr(batch, f.name)[lo:hi] for f in dataclasses.fields(SceneBatch)))
+
+
+def scene_owners(scene_ids: np.ndarray, world: int) -> np.ndarray:
+    """The rank of each slot of a packed batch (-1 on padding): its scenes in
+    packing order, contiguous runs cut where a scene's first slot passes
+    rank * (valid slots) / world, so each rank holds fewer than
+    valid / world + one scene's pedestrians."""
+    valid = scene_ids >= 0
+    n = int(valid.sum())
+    owner = np.full(scene_ids.shape, -1, np.int64)
+    if n:
+        # Each scene's first pedestrian, counted among the valid slots.
+        _, first, inverse = np.unique(scene_ids[valid], return_index=True,
+                                      return_inverse=True)
+        owner[valid] = (first * world // n)[inverse]
+    return owner
+
+
+def shard_width(p_max: int, n_max: int, world: int) -> int:
+    """Slots of a rank's row in `shard_scenes`: enough for any rank's part of
+    a packed batch of at most `p_max` pedestrians in scenes of at most
+    `n_max` (see `scene_owners`)."""
+    return min(p_max, -(-p_max // world) + n_max)
+
+
+def shard_scenes(batch: CollatedBatch, rank: int, world: int, width: int) -> CollatedBatch:
+    """Rank `rank`'s whole scenes of a packed batch (`scene_owners`), in
+    packing order, repacked from slot 0 into a row of `width` slots; each
+    slot keeps its scene id. A rank without a scene gets a row of padding."""
+    own = np.flatnonzero(scene_owners(batch.scene_ids, world) == rank)
+    if len(own) > width:
+        raise ValueError(f"rank {rank} holds {len(own)} pedestrians in {width} slots")
+    obs = np.zeros((width,) + batch.obs.shape[1:], np.float32)
+    pred = np.zeros((width,) + batch.pred.shape[1:], np.float32)
+    valid = np.zeros((width,), bool)
+    scene_ids = np.full((width,), -1, np.int32)
+    non_linear = np.zeros((width,), np.float32)
+    for dst, src in ((obs, batch.obs), (pred, batch.pred), (valid, batch.ped_valid),
+                     (scene_ids, batch.scene_ids), (non_linear, batch.non_linear)):
+        dst[:len(own)] = src[own]
+    return CollatedBatch(obs, pred, valid, scene_ids, non_linear)

@@ -77,6 +77,20 @@ def calculate_parameters(
     return ETParams(basis_m=basis_m, basis_s=basis_s, anchor_m=anchor_m, anchor_s=anchor_s)
 
 
+def _row_mean(obs_ori: torch.Tensor, valid_f: torch.Tensor) -> torch.Tensor:
+    denom = torch.clamp_min(valid_f.sum(dim=2, keepdim=True), 1.0)
+    return (obs_ori * valid_f).sum(dim=2, keepdim=True) / denom
+
+
+def row_center(obs_traj: torch.Tensor, ped_valid: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 1): the mean origin of each row's valid pedestrians, the
+    centre `et_forward` takes for a row. A caller that splits a row's scenes
+    over ranks computes it over the whole row and hands it in as
+    `aux["row_center"]`."""
+    ori = obs_traj[..., -1, :].transpose(1, 2)              # compute_norm_params' ori
+    return _row_mean(ori, ped_valid.to(ori.dtype)[:, None, :])
+
+
 def et_forward(
     et: ETParams,
     predictor_fn: Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor],
@@ -98,7 +112,9 @@ def et_forward(
       pred_traj: optional (B, N, t_pred, 2) GT for the training loss branch.
       aux: extra inputs forwarded to predictor_fn; its key
         `center_scene_ids` (B, N) is taken out and centres the origins per
-        scene instead of per row.
+        scene instead of per row, and its key `row_center` (B, 2, 1), where
+        given, is taken out and is the centre of each row (`row_center()`
+        of a whole row that this block holds a part of).
       return_coefficients: return the refined coefficients and the
         normalization params instead of trajectories, for a fused
         reconstruction by the caller.
@@ -127,9 +143,10 @@ def et_forward(
     valid_f = ped_valid.to(obs_ori.dtype)[:, None, :]       # (B, 1, N)
     denom = torch.clamp_min(valid_f.sum(dim=2, keepdim=True), 1.0)
     center_sid = aux.pop("center_scene_ids", None)
-    if center_sid is None:
-        center = (obs_ori * valid_f).sum(dim=2, keepdim=True) / denom
-    else:
+    center = aux.pop("row_center", None)
+    if center is None and center_sid is None:
+        center = _row_mean(obs_ori, valid_f)
+    elif center is None:
         same = (center_sid[:, :, None] == center_sid[:, None, :]).to(obs_ori.dtype) * valid_f
         cnt = torch.clamp_min(same.sum(dim=2), 1.0)          # (B, N)
         center = torch.bmm(same, (obs_ori * valid_f).transpose(1, 2))   # (B, N, 2)

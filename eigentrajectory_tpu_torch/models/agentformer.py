@@ -292,6 +292,9 @@ def finalize(output_data: torch.Tensor, aux: Dict) -> torch.Tensor:
 
 
 BATCHING = "collated"
+# Training attends across every scene of the packed row: a data-parallel
+# step cannot split a row's scenes over ranks (each rank runs the whole row).
+ROW_COUPLED = True
 # Packed-eval cap: every token of a packed row attends to every other, so
 # the score tensors grow with the square of the slots.
 EVAL_PED_CAP = 128

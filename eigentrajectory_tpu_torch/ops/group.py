@@ -62,8 +62,8 @@ def group_ranks(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor,
     return _launch(merge, valid)
 
 
-def _launch(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES
+def _check_args(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]:
+    """Check the kernel's inputs on a CUDA device; returns (B, N)."""
     device = valid.device
     if device.type != "cuda":
         raise ValueError(f"the group relabel runs on CUDA or CPU tensors, got {device}")
@@ -77,12 +77,21 @@ def _launch(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, tor
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bool tensor {shape} on {device}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return b, n
+
+
+def _launch(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAUNCHES
+    b, n = _check_args(merge, valid)
+    device = valid.device
     ranks = torch.empty((b, n), dtype=torch.int32, device=device)
     n_groups = torch.empty((b,), dtype=torch.int32, device=device)
     lib = _library()
-    err = lib.et_group_relabel(merge.data_ptr(), valid.data_ptr(), ranks.data_ptr(),
-                               n_groups.data_ptr(), b, n,
-                               torch.cuda.current_stream(device).cuda_stream)
+    # The runtime launches on the current device: make it the tensors' card.
+    with torch.cuda.device(device):
+        err = lib.et_group_relabel(merge.data_ptr(), valid.data_ptr(), ranks.data_ptr(),
+                                   n_groups.data_ptr(), b, n,
+                                   torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"group_relabel kernel launch failed: "
                            f"{lib.et_cuda_error_string(err).decode()} ({err})")

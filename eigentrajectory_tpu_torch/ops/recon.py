@@ -114,11 +114,14 @@ def _launch(c_m, c_s, u_m, u_s, ori, rot, sca, mask, gt) -> Outputs:
     recon = torch.empty((s, n, t, 2), dtype=torch.float32, device=device)
     ade, fde, tcc = torch.empty((3, n), dtype=torch.float32, device=device)
     lib = _library(SOURCE, "et_recon_metrics", 13)
-    _raise_on(lib, lib.et_recon_metrics(
-        c_m.data_ptr(), c_s.data_ptr(), u_m.data_ptr(), u_s.data_ptr(),
-        ori.data_ptr(), rot.data_ptr(), sca.data_ptr(), mask.data_ptr(),
-        gt.data_ptr(), recon.data_ptr(), ade.data_ptr(), fde.data_ptr(),
-        tcc.data_ptr(), k, n, s, t, _stream(c_m)), "recon_metrics")
+    # The runtime launches on the current device (and sets the kernel's
+    # shared-memory attribute there): make it the tensors' card.
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.et_recon_metrics(
+            c_m.data_ptr(), c_s.data_ptr(), u_m.data_ptr(), u_s.data_ptr(),
+            ori.data_ptr(), rot.data_ptr(), sca.data_ptr(), mask.data_ptr(),
+            gt.data_ptr(), recon.data_ptr(), ade.data_ptr(), fde.data_ptr(),
+            tcc.data_ptr(), k, n, s, t, _stream(c_m)), "recon_metrics")
     LAUNCHES += 1
     return recon, ade, fde, tcc
 
@@ -128,10 +131,11 @@ def _launch_reconstruct(c_m, c_s, u_m, u_s, ori, rot, sca, mask) -> torch.Tensor
     k, n, s, t = _check_args(c_m, c_s, u_m, u_s, ori, rot, sca, mask)
     out = torch.empty((s, n, t, 2), dtype=torch.float32, device=c_m.device)
     lib = _library(RECONSTRUCT_SOURCE, "et_reconstruct", 9)
-    _raise_on(lib, lib.et_reconstruct(
-        c_m.data_ptr(), c_s.data_ptr(), u_m.data_ptr(), u_s.data_ptr(),
-        ori.data_ptr(), rot.data_ptr(), sca.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), k, n, s, t, _stream(c_m)), "reconstruct")
+    with torch.cuda.device(c_m.device):
+        _raise_on(lib, lib.et_reconstruct(
+            c_m.data_ptr(), c_s.data_ptr(), u_m.data_ptr(), u_s.data_ptr(),
+            ori.data_ptr(), rot.data_ptr(), sca.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), k, n, s, t, _stream(c_m)), "reconstruct")
     RECONSTRUCT_LAUNCHES += 1
     return out
 

@@ -1,0 +1,2 @@
+from .mesh import (Rank, all_reduce_sum_, barrier, broadcast_object, current, destroy,
+                   init_from_env, init_process_group, make_mesh)

@@ -41,26 +41,52 @@ one row a scene, as the JAX trainer splits one key a scene from the step's.
 either package loads it. The resume state (`resume.pt`) is the port's own:
 an optax state tree and a JAX key mean nothing to `torch.optim`.
 
-One device only: a config with `mesh_data_axis` > 1 is refused.
+Data parallelism (`cfg.mesh_data_axis` = n > 1, in a process group of n
+ranks, `parallel.init_process_group`): a run over n ranks computes what the
+single-device run computes. Every rank holds the whole split, draws the
+same batches and takes its part on the host (`data.batching`):
+* sequenced: a contiguous range of each block's scene rows
+  (`cfg.batch_size` % n == 0). The step loss already divides by the full
+  batch size, so the ranks' losses and gradients add up to the block's;
+* collated: whole scenes of each packed batch, in a row of their own,
+  centred on the whole batch's origin (`etspace.facade.row_center`) and
+  weighted by their share of its valid pedestrians. A predictor whose
+  training forward couples the scenes of a row (`ROW_COUPLED`:
+  ET-AgentFormer's attention spans the packed batch) runs the whole batch
+  on every rank, each weighted 1 / n: exact, not faster.
+Each rank's gradients, its BN statistics (updated from the pre-step ones,
+weighted by its valid scenes, as the micro-batches are) and its loss go
+through one all-reduce (`train.all_reduce`) before the optimizer, so NaN
+entries are zeroed, the norm clipped and AdamW applied on the global
+gradient. DropEdge and Dropout draw what the single process draws: every
+rank draws the whole block's masks from the same stream and takes its
+rows (Dropout runs only in the row-coupled ET-AgentFormer, whose ranks all
+run the whole batch). `valid()` and `test()` split the blocks' rows
+(sequenced) or deal the packed batches to the ranks (collated) and sum
+(value, count) over the ranks. Rank 0 fits the descriptor and broadcasts
+it, and writes the checkpoints and the log; every rank loads.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import pickle
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import metrics as M
+from .. import parallel
 from ..config import ExpConfig, resolve_dataset_dir
-from ..data.batching import CollatedBatcher, SceneBatcher, max_collated_peds, scene_gather
+from ..data.batching import (CollatedBatcher, SceneBatcher, max_collated_peds, scene_gather,
+                             shard_rows, shard_scenes, shard_width)
 from ..data.dataset import augment_trajectory, load_trajectory_data
 from ..etspace.descriptor import ETBasis
-from ..etspace.facade import ETParams, calculate_parameters, et_forward
+from ..etspace.facade import ETParams, calculate_parameters, et_forward, row_center
 from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_flax_msgpack,
                        write_flax_msgpack)
 from ..models import get_baseline
@@ -69,9 +95,17 @@ from ..ops.recon import fused_recon_metrics
 from ..utils.profiling import StepTimer, trace_annotation
 
 
+class StepPart(NamedTuple):
+    """A rank's part of a collated step besides its tensors: its weight in
+    the step loss and the whole packed row's centre (None: its own row's)."""
+
+    weight: float
+    center: Optional[torch.Tensor] = None
+
+
 class ETTorchTrainer:
     """Training and evaluation of one (baseline, dataset) experiment on one
-    device.
+    device, or on one rank of a data-parallel run.
 
     `datasets` = (train, val, test) TrajectoryData overrides loading the
     splits from `cfg.dataset_dir`. `device` defaults to the card; tests pass
@@ -79,15 +113,28 @@ class ETTorchTrainer:
     only type the CUDA kernels take, or float64 on the CPU for a reference
     that f32 rounding does not reach. The initial weights, the k-means draws
     of `init_descriptor` and the dropout draws come from `cfg.seed`.
+
+    `cfg.mesh_data_axis` > 1 needs a process group of that many ranks
+    (`parallel.init_process_group`); the rank's device is the group's
+    (`device` names only its type). With `mesh_data_axis` 1 the trainer
+    runs alone, in a process group or not.
     """
 
     def __init__(self, cfg: ExpConfig, tag: str = "EigenTrajectory-TPU",
                  datasets=None, device: str = "cuda", dtype: torch.dtype = torch.float32):
+        self.rank, self.world = 0, 1
         if cfg.mesh_data_axis > 1:
-            raise NotImplementedError(
-                f"mesh_data_axis = {cfg.mesh_data_axis}: the port runs on one card; sharding "
-                f"a step over several (ROADMAP.md, Queue A item 8, multi-GPU) is not ported "
-                f"yet. Set mesh_data_axis to 1.")
+            group = parallel.current()
+            if group is None or group.world != cfg.mesh_data_axis:
+                found = "none" if group is None else f"one of {group.world} ranks"
+                raise ValueError(
+                    f"mesh_data_axis = {cfg.mesh_data_axis} needs a process group of as many "
+                    f"ranks (torchrun --nproc_per_node={cfg.mesh_data_axis}, or "
+                    f"parallel.init_process_group); found {found}")
+            if torch.device(device).type != group.device.type:
+                raise ValueError(f"device {device} asked for, the process group runs on "
+                                 f"{group.device}")
+            self.rank, self.world, device = group.rank, group.world, group.device
         self.cfg = cfg
         self.tag = tag
         self.device = torch.device(device)
@@ -114,6 +161,15 @@ class ETTorchTrainer:
             # Slots of a packed train or val batch.
             self.p_max = max(max_collated_peds(self.data_train, cfg.batch_size),
                              max_collated_peds(self.data_val, cfg.batch_size), self.n_max)
+            # Slots of a rank's row of whole scenes (the whole batch where
+            # the predictor couples a row's scenes in training).
+            self.row_coupled = getattr(self.baseline, "ROW_COUPLED", False)
+            self.p_shard = (self.p_max if self.row_coupled else
+                            shard_width(self.p_max, self.n_max, self.world))
+        elif cfg.batch_size % self.world:
+            raise ValueError(f"the sequenced regime splits a block's scenes over the ranks: "
+                             f"batch_size {cfg.batch_size} is not divisible by "
+                             f"mesh_data_axis {self.world}")
         self.log: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
         # Optional per-step wall-clock meter (set by fit()); it measures the
         # enqueue of a step, not its device time: train() does not wait for
@@ -166,6 +222,23 @@ class ETTorchTrainer:
                               for x in (batch.ped_valid, batch.scene_valid))
         return obs, pred, valid, scene_valid
 
+    def step_args(self, batch):
+        """This rank's part of a train batch: the arguments of
+        `loss_and_grads` / `train_step` on the device (as `_to_device`
+        gives them) and its `StepPart` (None, but for a collated rank of a
+        data-parallel run)."""
+        if self.world == 1:
+            return self._to_device(batch), None
+        if not self.collated:
+            return self._to_device(shard_rows(batch, self.rank, self.world)), None
+        if self.row_coupled:
+            return self._to_device(batch), StepPart(1.0 / self.world)
+        own = shard_scenes(batch, self.rank, self.world, self.p_shard)
+        obs = torch.from_numpy(batch.obs[None]).to(self.device, self.dtype)
+        center = row_center(obs, torch.from_numpy(batch.ped_valid[None]).to(self.device))
+        share = int(own.ped_valid.sum()) / max(int(batch.ped_valid.sum()), 1)
+        return self._to_device(own), StepPart(share, center)
+
     def make_aux(self, valid: torch.Tensor, scene_info: torch.Tensor) -> Dict:
         """The predictor's extra inputs for a (B, N) block with validity
         `valid`, as the JAX trainer's aux template holds them: the number of
@@ -181,13 +254,23 @@ class ETTorchTrainer:
     # ----------------------------------------------------------- descriptor
     def init_descriptor(self):
         """One-time ET descriptor and anchor fit over the train and val splits
-        (flip-augmented)."""
-        obs = np.concatenate([self.data_train.obs_traj, self.data_val.obs_traj], axis=0)
-        pred = np.concatenate([self.data_train.pred_traj, self.data_val.pred_traj], axis=0)
-        obs, pred = augment_trajectory(obs, pred)
-        self._set_et(calculate_parameters(
-            self.generator, obs, pred, self.cfg.k, self.cfg.num_samples,
-            self.cfg.static_dist, device=self.device))
+        (flip-augmented); in a data-parallel run rank 0 fits and broadcasts
+        the parameters and the k-means generator's state."""
+        et = None
+        if self.rank == 0:
+            obs = np.concatenate([self.data_train.obs_traj, self.data_val.obs_traj], axis=0)
+            pred = np.concatenate([self.data_train.pred_traj, self.data_val.pred_traj], axis=0)
+            obs, pred = augment_trajectory(obs, pred)
+            et = calculate_parameters(self.generator, obs, pred, self.cfg.k,
+                                      self.cfg.num_samples, self.cfg.static_dist,
+                                      device=self.device)
+        if self.world > 1:
+            cpu = None if et is None else ETParams(
+                ETBasis(*(x.cpu() for x in et.basis_m)), ETBasis(*(x.cpu() for x in et.basis_s)),
+                et.anchor_m.cpu(), et.anchor_s.cpu())
+            et, state = parallel.broadcast_object((cpu, self.generator.get_state()))
+            self.generator.set_state(state)
+        self._set_et(et)
 
     def _set_et(self, et: ETParams):
         to = lambda x: x.to(self.device, self.dtype).contiguous()
@@ -196,35 +279,44 @@ class ETTorchTrainer:
             anchor_m=to(et.anchor_m), anchor_s=to(et.anchor_s))
 
     # ---------------------------------------------------------- train steps
-    def _chunk_loss(self, obs, pred, valid, scene_info) -> torch.Tensor:
+    def _chunk_loss(self, obs, pred, valid, scene_info,
+                    part: Optional[StepPart] = None) -> torch.Tensor:
         """The share of the step loss of one chunk.
 
         Sequenced (`scene_info` = scene validity (B,)): per-scene losses,
         non-finite ones zeroed, padding scenes weighted 0, summed and divided
-        by the FULL cfg.batch_size, so that the chunks' gradients add up to
-        the whole block's. Collated (`scene_info` = scene ids (1, P)): the
-        losses of the one packed row, a masked mean over its valid
-        pedestrians, non-finite -> 0.
+        by the FULL cfg.batch_size, so that the chunks' (and the ranks')
+        gradients add up to the whole block's. Collated (`scene_info` = scene
+        ids (1, P)): the losses of the one packed row, a masked mean over its
+        valid pedestrians, non-finite -> 0; a rank's `part` of a packed batch
+        is weighted by its share and left as it is (the all-reduce zeroes a
+        step whose summed loss is not finite).
         """
+        aux = self.make_aux(valid, scene_info)
+        if part is not None and part.center is not None:
+            aux["row_center"] = part.center
         out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
-                         pred_traj=pred, aux=self.make_aux(valid, scene_info))
+                         pred_traj=pred, aux=aux)
         losses = (out["loss_eigentraj"] + out["loss_euclidean_ade"]
                   + out["loss_euclidean_fde"])                               # (B,)
+        if part is not None:
+            return losses.sum() * part.weight
         losses = torch.nan_to_num(losses, nan=0.0, posinf=0.0, neginf=0.0)
         if self.collated:
             return losses.sum()
         return (losses * scene_info.to(losses.dtype)).sum() / self.cfg.batch_size
 
-    def _chunk_backward(self, obs, pred, valid, scene_info) -> torch.Tensor:
+    def _chunk_backward(self, obs, pred, valid, scene_info, part=None) -> torch.Tensor:
         """Add one chunk's gradient to `.grad`; returns its share of the loss."""
         with record_function("train.forward"):
-            loss = self._chunk_loss(obs, pred, valid, scene_info)
+            loss = self._chunk_loss(obs, pred, valid, scene_info, part)
         with record_function("train.backward"):
             loss.backward()
         return loss.detach()
 
     def loss_and_grads(self, obs, pred, valid, scene_info,
-                       edge_keeps: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                       edge_keeps: Optional[List[torch.Tensor]] = None,
+                       part: Optional[StepPart] = None) -> torch.Tensor:
         """Step loss of one block or packed batch, as `_to_device` gives it
         (a 0-dim tensor on the device), with its gradient left in the
         parameters' `.grad` and the BN statistics moved once. The model must
@@ -246,18 +338,33 @@ class ETTorchTrainer:
         chunks' updated statistics are averaged by their counts of valid
         scenes. The collated regime ignores `micro_batches`, as the JAX
         trainer does.
+
+        On a rank of a data-parallel run the arguments are its part
+        (`step_args`), `edge_keeps` the whole block's masks, and the loss,
+        gradients and BN statistics left behind are the whole step's
+        (`_all_reduce`).
         """
         m = self.cfg.micro_batches
         self.optimizer.zero_grad(set_to_none=True)
         keeps = []
         if self.model.training:
-            keeps = draw_edge_keeps(self.model, self.dropout_generator, *obs.shape[:2]) \
+            # A sequenced rank holds rows [rank * b, (rank + 1) * b) of the block.
+            b = obs.shape[0]
+            sharded = self.world > 1 and not self.collated
+            keeps = draw_edge_keeps(self.model, self.dropout_generator,
+                                    b * self.world if sharded else b, obs.shape[1]) \
                 if edge_keeps is None else [k.to(self.device) for k in edge_keeps]
+            if sharded:
+                keeps = [k[self.rank * b:(self.rank + 1) * b] for k in keeps]
         try:
             if m <= 1 or self.collated:
                 set_edge_keeps(self.model, keeps)
-                loss = self._chunk_backward(obs, pred, valid, scene_info)
+                loss = self._chunk_backward(obs, pred, valid, scene_info, part)
                 self._zero_missing_grads()
+                if self.world > 1:
+                    weight = torch.ones((), device=self.device) if self.collated else \
+                        scene_info.sum()
+                    loss = self._all_reduce(loss, weight)
                 return loss
 
             if obs.shape[0] % m:
@@ -278,7 +385,7 @@ class ETTorchTrainer:
             for a, b in zip(acc, stats):
                 b.copy_(a / torch.clamp_min(wsum, 1.0))
             self._zero_missing_grads()
-            return total
+            return self._all_reduce(total, wsum) if self.world > 1 else total
         finally:
             set_edge_keeps(self.model, None)
 
@@ -286,6 +393,36 @@ class ETTorchTrainer:
         for p in self._called:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+    def _all_reduce(self, loss: torch.Tensor, n_scenes: torch.Tensor) -> torch.Tensor:
+        """Sum the ranks' gradients, losses and BN statistics in one
+        all-reduce. A rank's statistics are its update from the pre-step
+        ones, weighted by its `n_scenes` valid scenes (0 for a rank of
+        padding scenes); the sum is divided by all ranks' valid scenes, as
+        one forward over the block weights them. The gradients are summed
+        before any NaN entry is zeroed, as the single process zeroes the
+        summed entry. A collated step whose summed loss is not finite gets
+        zero gradients and loss 0, as the single process's nan_to_num of the
+        batch's loss gives. Returns the step's loss."""
+        with record_function("train.all_reduce"):
+            grads = [p.grad for p in self._called]
+            stats = list(self.model.buffers())
+            w = n_scenes.to(loss.dtype).reshape(1)
+            flat = torch.cat([g.reshape(-1) for g in grads] + [(b * w).reshape(-1) for b in stats]
+                             + [w, loss.detach().reshape(1)])
+            parallel.all_reduce_sum_(flat)
+            n_grad = sum(g.numel() for g in grads)
+            if self.collated:
+                keep = torch.isfinite(flat[-1])
+                flat[:n_grad] = torch.where(keep, flat[:n_grad], 0.0)
+                flat[-1] = torch.where(keep, flat[-1], 0.0)
+            parts = flat.split([g.numel() for g in grads] + [b.numel() for b in stats] + [1, 1])
+            for g, new in zip(grads, parts):
+                g.copy_(new.view_as(g))
+            wsum = torch.clamp_min(parts[-2], 1.0)
+            for b, new in zip(stats, parts[len(grads):]):
+                b.copy_(new.view_as(b) / wsum)
+            return parts[-1].reshape(())
 
     def apply_gradients(self):
         """One optimizer update from the gradients in `.grad`, in optax's
@@ -302,11 +439,12 @@ class ETTorchTrainer:
             torch._foreach_mul_(grads, scale)
         self.optimizer.step()
 
-    def train_step(self, obs, pred, valid, scene_info) -> torch.Tensor:
-        """One training step on a block or packed batch on the device;
-        returns the step loss as a 0-dim tensor, without waiting for the
-        device."""
-        loss = self.loss_and_grads(obs, pred, valid, scene_info)
+    def train_step(self, obs, pred, valid, scene_info,
+                   part: Optional[StepPart] = None) -> torch.Tensor:
+        """One training step on a block or packed batch on the device (a
+        rank's part of it, `step_args`); returns the step loss as a 0-dim
+        tensor, without waiting for the device."""
+        loss = self.loss_and_grads(obs, pred, valid, scene_info, part=part)
         with record_function("train.optimizer"):
             self.apply_gradients()
         return loss
@@ -347,11 +485,13 @@ class ETTorchTrainer:
         losses = []
         for batch in self.train_batches(epoch):
             with record_function("train.to_device"):
-                args = self._to_device(batch)
+                args, part = self.step_args(batch)
             ctx = (self.step_timer.measure() if self.step_timer is not None
                    else contextlib.nullcontext())
             with ctx:
-                losses.append(self.train_step(*args))
+                # Alone (part None) the call is the single-device one.
+                losses.append(self.train_step(*args) if part is None else
+                              self.train_step(*args, part=part))
         self.model.eval()
         total = 0.0
         for loss in torch.stack(losses).cpu().tolist():
@@ -364,14 +504,16 @@ class ETTorchTrainer:
     def valid(self, epoch: int) -> float:
         """Validation loss: sum over the val scenes (packed batches) of (mean
         min-of-S FDE * valid pedestrians) over the split's pedestrians, in
-        eval mode."""
+        eval mode. A data-parallel rank takes its rows of each block
+        (sequenced) or every world-th packed batch (collated), and the ranks'
+        sums are added."""
         self.model.eval()
         parts = []
         cfg = self.cfg
         batches = (CollatedBatcher(self.data_val, cfg.batch_size, False, self.p_max)
                    if self.collated else
                    SceneBatcher(self.data_val, cfg.batch_size, False, self.n_max))
-        for batch in batches:
+        for batch in self._own(batches):
             obs, pred, valid, scene_info = self._to_device(batch)
             out = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
                              pred_traj=pred, aux=self.make_aux(valid, scene_info))
@@ -379,8 +521,10 @@ class ETTorchTrainer:
             weight = n if self.collated else n * scene_info.to(self.dtype)
             parts.append((out["loss_euclidean_fde"] * weight).sum())
         total = 0.0
-        for part in torch.stack(parts).cpu().tolist():
+        for part in (torch.stack(parts).cpu().tolist() if parts else ()):
             total += part
+        if self.world > 1:
+            total = self._sum_over_ranks([total])[0]
         val = total / max(1, int(self.data_val.num_peds_in_seq.sum()))
         self.log["val_loss"].append(val)
         return val
@@ -394,6 +538,7 @@ class ETTorchTrainer:
         that state every so many epochs.
         """
         num_epochs = num_epochs or self.cfg.num_epochs
+        verbose = verbose and self.rank == 0
         start_epoch = self.load_resume_state() if resume else 0
         self.epoch_timer = StepTimer()
         self.step_timer = StepTimer()
@@ -427,11 +572,12 @@ class ETTorchTrainer:
         inputs = self.baseline.prepare(c_obs, obs_ori, aux)
         return self.baseline.finalize(self.model(*inputs), aux)
 
-    def recon_args(self, coef):
+    def recon_args(self, coef, et: Optional[ETParams] = None):
         """The fused reconstruction's inputs (c_m, c_s, u_m, u_s, ori, rot,
         sca, mask) from `et_forward(..., return_coefficients=True)` over a
-        (B, N) block, flattened to one pedestrian axis of B*N."""
-        cfg, et = self.cfg, self.et
+        (B, N) block, flattened to one pedestrian axis of B*N (the bases of
+        `et`, by default the trainer's)."""
+        cfg, et = self.cfg, self.et if et is None else et
         b, _, n, _ = coef["c_pred_m"].shape
         # (B, k, N, S) -> (k, B*N, S)
         c_m, c_s = (coef[key].transpose(0, 1).reshape(cfg.k, b * n, cfg.num_samples)
@@ -497,22 +643,37 @@ class ETTorchTrainer:
             col = M.col(recon_g, gmask)[inv_g, inv_i]
         return ade, fde, tcc, col
 
+    def _own(self, batches):
+        """This rank's part of eval batches: its rows of each block
+        (sequenced) or every world-th packed batch (collated)."""
+        if self.world == 1:
+            return iter(batches)
+        if self.collated:
+            return itertools.islice(batches, self.rank, None, self.world)
+        return (shard_rows(b, self.rank, self.world) for b in batches)
+
+    def _sum_over_ranks(self, values: List[float]) -> List[float]:
+        buf = torch.tensor(values, dtype=torch.float64, device=self.device)
+        return parallel.all_reduce_sum_(buf).tolist()
+
     def _test_batches(self, eval_batch: int, eval_ped_batch: Optional[int]):
         if not self.collated:
-            return SceneBatcher(self.data_test, eval_batch, False, self.n_max)
+            return self._own(SceneBatcher(self.data_test, eval_batch, False, self.n_max))
         if eval_ped_batch is None:
             # Attention over every token grows with P^2; such a predictor
             # caps its packed size.
             eval_ped_batch = getattr(self.baseline, "EVAL_PED_CAP", 2048)
-        return CollatedBatcher(self.data_test, eval_ped_batch, False,
-                               max_collated_peds(self.data_test, eval_ped_batch))
+        return self._own(CollatedBatcher(self.data_test, eval_ped_batch, False,
+                                         max_collated_peds(self.data_test, eval_ped_batch)))
 
     def test(self, eval_batch: int = 512,
              eval_ped_batch: Optional[int] = None) -> Dict[str, float]:
         """Mean min-of-S ADE/FDE/TCC/COL over the valid peds of the test split:
         `eval_batch` padded scenes at a time (sequenced), or whole scenes
         packed greedily to `eval_ped_batch` pedestrians (collated; by default
-        the predictor's `EVAL_PED_CAP`, else 2048)."""
+        the predictor's `EVAL_PED_CAP`, else 2048). A data-parallel rank
+        evaluates its part (`eval_batch` divisible by the ranks), and the
+        means are of the sums and counts over all ranks."""
         if self.et is None:
             raise RuntimeError("no ET parameters: call load_model() or init_descriptor() first")
         self.model.eval()
@@ -528,17 +689,30 @@ class ETTorchTrainer:
                 res = torch.stack(metrics).cpu().numpy()
             for j, name in enumerate(("ADE", "FDE", "TCC", "COL")):
                 meters[name].extend(res[j][batch.ped_valid])
-        return {k: m.mean() for k, m in meters.items()}
+        if self.world == 1:
+            return {k: m.mean() for k, m in meters.items()}
+        sums = [float(np.concatenate(m.data).astype(np.float64).sum()) if m.data else 0.0
+                for m in meters.values()]
+        *sums, count = self._sum_over_ranks(sums + [float(len(meters["ADE"]) if
+                                                          meters["ADE"].data else 0)])
+        return {k: v / max(count, 1.0) for k, v in zip(meters, sums)}
 
     # --------------------------------------------------------- checkpoints
     def save_model(self, filename: str = "model_best.msgpack"):
         """Write the predictor's weights, the BN statistics and the ET
         parameters in the JAX package's checkpoint format (float32), and the
-        loss log beside it as `log.pkl`, a dict of two lists of floats."""
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
-        write_flax_msgpack(os.path.join(self.checkpoint_dir, filename),
-                           params_to_jax(self.model, self.et))
-        self._save_log()
+        loss log beside it as `log.pkl`, a dict of two lists of floats (rank
+        0 of a data-parallel run; the others wait for it)."""
+        if self.rank == 0:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            write_flax_msgpack(os.path.join(self.checkpoint_dir, filename),
+                               params_to_jax(self.model, self.et))
+            self._save_log()
+        self._barrier()
+
+    def _barrier(self):
+        if self.world > 1:
+            parallel.barrier()
 
     def _save_log(self):
         with open(os.path.join(self.checkpoint_dir, "log.pkl"), "wb") as fp:
@@ -548,7 +722,10 @@ class ETTorchTrainer:
         """Full training state for crash recovery: weights, BN statistics, ET
         parameters, optimizer moments and step counts, the states of the
         k-means and the dropout generators, the epoch to go on from and the
-        loss log."""
+        loss log. Rank 0 writes it: the ranks' states are the same."""
+        if self.rank != 0:
+            self._barrier()
+            return
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         state = {
             "model": self.model.state_dict(),
@@ -562,6 +739,7 @@ class ETTorchTrainer:
         }
         torch.save(state, os.path.join(self.checkpoint_dir, filename))
         self._save_log()
+        self._barrier()
 
     def load_resume_state(self, filename: str = "resume.pt") -> int:
         """Restore the full training state; returns the epoch to resume from

@@ -8,9 +8,18 @@ Usage:
 
 Training fits the descriptor, trains with best-val checkpointing, reloads the
 best checkpoint and evaluates it. It runs on the card unless `--device cpu`.
+
+Data-parallel, with a config whose `mesh_data_axis` is N:
+  torchrun --nproc_per_node=N -m eigentrajectory_tpu_torch.trainval --cfg ...
+Each rank takes a card of its own (NCCL); `ET_SHARE_CARD=1` puts the ranks
+on one card (gloo, collectives through the host), `--device cpu` on the CPU
+(gloo). A WORLD_SIZE other than `mesh_data_axis` is refused. Rank 0 prints
+and writes the checkpoints.
 """
 import argparse
+import os
 
+from . import parallel
 from .config import load_config
 from .train.trainer import ETTorchTrainer
 
@@ -42,23 +51,32 @@ def main(argv=None):
     if args.dataset_dir:
         overrides["dataset_dir"] = args.dataset_dir
     cfg = load_config(args.cfg, **overrides)
-    print(f"Config: {cfg}", flush=True)
-
-    trainer = ETTorchTrainer(cfg, tag=args.tag, device=args.device)
-
-    if not args.test:
-        trainer.init_descriptor()
-        trainer.fit(num_epochs=args.epochs, resume=args.resume,
-                    checkpoint_every=args.ckpt_every)
-        trainer.load_model()
-        results = trainer.test()
-    else:
-        trainer.load_model()
-        print("Testing...", end=" ")
-        results = trainer.test()
-    print(f"Scene: {cfg.dataset}",
-          *[f"{k}: {v:.8f}" for k, v in results.items()], flush=True)
-    return results
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != cfg.mesh_data_axis:
+        raise SystemExit(f"WORLD_SIZE {world} differs from the config's mesh_data_axis "
+                         f"{cfg.mesh_data_axis}: run torchrun --nproc_per_node="
+                         f"{cfg.mesh_data_axis}, or set mesh_data_axis to {world}")
+    rank = parallel.init_from_env(device=args.device).rank if world > 1 else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
+    try:
+        say(f"Config: {cfg}", flush=True)
+        trainer = ETTorchTrainer(cfg, tag=args.tag, device=args.device)
+        if not args.test:
+            trainer.init_descriptor()
+            trainer.fit(num_epochs=args.epochs, resume=args.resume,
+                        checkpoint_every=args.ckpt_every)
+            trainer.load_model()
+            results = trainer.test()
+        else:
+            trainer.load_model()
+            say("Testing...", end=" ")
+            results = trainer.test()
+        say(f"Scene: {cfg.dataset}",
+            *[f"{k}: {v:.8f}" for k, v in results.items()], flush=True)
+        return results
+    finally:
+        if world > 1:
+            parallel.destroy()
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ dropout off against the JAX loss at `train=False` (in float32, and in
 float64 against JAX's x64 mode), the dropout stream (the
 trainer's own: different states give other losses, the global stream none;
 `fit` resumes bitwise), the zara2 checkpoint written back byte for byte, and
-`mesh_data_axis` > 1 refused.
+a `mesh_data_axis` other than the process group's world refused.
 """
 import os
 
@@ -504,7 +504,15 @@ def test_the_zara2_checkpoint_is_written_back_byte_for_byte(zara2, tmp_path):
     assert out.read_bytes() == committed
 
 
-def test_mesh_data_axis_above_one_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+def test_mesh_data_axis_above_one_is_refused(tmp_path, monkeypatch):
+    """mesh_data_axis must equal the process group's world: refused with no
+    group, and in a group of another size."""
+    from eigentrajectory_tpu_torch import parallel
+
+    with pytest.raises(ValueError, match="mesh_data_axis = 2 needs a process group .* none"):
+        _trainer(tmp_path, mesh_data_axis=2)
+    monkeypatch.setattr(parallel, "current",
+                        lambda: parallel.Rank(0, 4, torch.device("cpu"), "gloo"))
+    with pytest.raises(ValueError, match="mesh_data_axis = 2 .* one of 4 ranks"):
         _trainer(tmp_path, mesh_data_axis=2)
     assert _trainer(tmp_path, mesh_data_axis=1).p_max > 0

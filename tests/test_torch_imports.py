@@ -62,6 +62,9 @@ def test_port_imports_no_jax():
     "eigentrajectory_tpu_torch.models.common",
     "eigentrajectory_tpu_torch.inference",
     "eigentrajectory_tpu_torch.data.batching",
+    "eigentrajectory_tpu_torch.parallel",
+    "eigentrajectory_tpu_torch.parallel.mesh",
+    "eigentrajectory_tpu_torch.parallel.dryrun",
 ])
 def test_training_modules_load_nothing_of_jax(module):
     code = (f"import sys, {module}\n"
