@@ -146,10 +146,14 @@ CUDA toolkit. It
    and a step with DropEdge on, on the dense block, card vs CPU. Then
    `group_relabel` is held bit for bit against its plain version on the
    masks of the main path at (320, 57), (301, 128) and request (c)'s
-   (1, 256), and on random masks at N = 31, 32, 33 and 1,025, and timed at
-   (320, 57) and (301, 128). A failed card-vs-CPU check of these models
-   prints the count of pair distances within 4 ulps of th (or of |c_0|
-   within 4 ulps of a bin edge) in the case;
+   (1, 256), on random masks at N = 31, 32, 33, 1,025 and at the kernel's
+   tier edges 64, 65, 128, 129, 256, 257, and on all-merge masks (every
+   valid pair merges: the longest chain) at (4, 57) and (1, 256); it is
+   timed at the three main-path shapes and on the two all-merge masks, its
+   chain depth (rows holding a merge) printed beside the pairs' serial
+   depth N(N-1)/2 and rows + merges. A failed card-vs-CPU check of these
+   models prints the count of pair distances within 4 ulps of th (or of
+   |c_0| within 4 ulps of a bin edge) in the case;
 12. data parallelism: spawns DP_WORLD = 2 ranks, NCCL with a card each
    where the machine has two, else both on cuda:0 with gloo (printed:
    collectives go through the host, every kernel and model op runs on the
@@ -185,9 +189,13 @@ ET-AgentFormer, ET-DMRGCN and the three models of step 11 with
 torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
 device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2, then
 builds the sources of the same names in OLD_CSRC_DIR (another version of the
-kernels, with the same C interface), times both versions of each kernel in
-turns (old, new, new, old) by the three methods of step 6, prints the times
-and stops. Any failure raises and the exit code is not 0; without a
+kernels, with the same C interface; a kernel whose source the directory
+lacks is left out), times both versions of each kernel in turns (old, new,
+new, old) by the three methods of step 6 (`group_relabel` by graph replay
+and the wrapper loop, on its main-path inputs at (320, 57), (301, 128) and
+(1, 256) from ET-GP-Graph-STGCNN's seeded init, th set as in step 11), checks
+that the two versions' outputs are the same bits, prints the times and
+stops. Any failure raises and the exit code is not 0; without a
 CUDA device the script fails before it prints a result.
 """
 import dataclasses
@@ -511,6 +519,81 @@ def _ab(recon, build, old_dir, card, kernels):
               f"{times['call']}; old and new outputs bit-equal: {same} (max |old - new| of "
               f"the trajectories {diff:.3e})", flush=True)
     print(json.dumps({"ab": out}), flush=True)
+
+
+def _relabel_main_inputs(card):
+    """--ab: the relabel's inputs on the main path at (320, 57), (301, 128)
+    and request (c)'s (1, 256): ET-GP-Graph-STGCNN (hotel configuration,
+    the seed's weights, th set as step 11 sets it) through test() of the
+    320 x 57 block and predict() of requests (b) and (c) on the card; and
+    the all-merge masks at (4, 57) and (1, 256), step 11's worst case."""
+    import numpy as np
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+    from eigentrajectory_tpu_torch.models import gpgraph_common
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    splits = _sequenced_splits(make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=0))
+    test = splits[2]
+    cfg = load_config(os.path.join(REPO, "configs", "eigentrajectory-gpgraphstgcnn-hotel.json"),
+                      checkpoint_dir=CKPT_DIR, n_max_peds=N_MAX)
+    tr = ETTorchTrainer(cfg, tag="ab", datasets=splits)
+    tr.init_descriptor()
+    tr_cpu = ETTorchTrainer(cfg, tag="ab-cpu", datasets=splits, device="cpu")
+    tr_cpu.model.load_state_dict(tr.model.state_dict())
+    tr_cpu._set_et(tr.et)
+    _set_th(tr, tr_cpu, splits, card)
+    predictor = ETPredictor(tr, bucket=BUCKET)
+    with _noting_relabels(gpgraph_common) as seen:
+        tr.test(eval_batch=EVAL_BATCH)
+        predictor.predict(test.obs_traj, np.repeat(np.arange(N_SCENES), test.num_peds_in_seq))
+        predictor.predict(_walkers(150, seed=13), np.zeros(150, np.int64))
+    noted = {}
+    for merge, valid, _, _ in seen:
+        noted.setdefault(tuple(valid.shape), (merge, valid))
+    inputs = {f"{b}x{n}": noted[(b, n)] for b, n in ((EVAL_BATCH, N_MAX), (N_SCENES, BUCKET),
+                                                     (1, 2 * BUCKET))}
+    inputs.update({f"all_merge_at_{b}x{n}": _all_merge(gpgraph_common, b, n)
+                   for b, n in ((4, N_MAX), (1, 2 * BUCKET))})
+    return inputs
+
+
+def _ab_relabel(group, build, old_dir, card, noted):
+    """Both versions of the relabel kernel, the source in `old_dir` and the
+    package's, on the inputs `_relabel_main_inputs` gives, in turns (old,
+    new, new, old):
+    device ms by CUDA graph replay (as `_relabel_times`) and the wrapper
+    loop's ms; the two versions' outputs must be the same bits."""
+    import torch
+
+    out = {}
+    dirs = {"old": old_dir, "new": build.CSRC_DIR}
+    for key, (merge, valid) in noted.items():
+        b, n = valid.shape
+        graphs, results = {}, {}
+        for version, path in dirs.items():
+            with _csrc_dir(build, path):
+                results[version] = group.group_ranks(merge, valid)
+                graphs[version] = _capture(group.group_ranks, [(merge, valid)],
+                                           GRAPH_LAUNCHES_EVAL)
+        if not all(torch.equal(a, w) for a, w in zip(results["old"], results["new"])):
+            raise AssertionError(f"A/B group_relabel {key}: old and new outputs differ")
+        times = {"graph": [], "call": []}
+        for version in ("old", "new", "new", "old"):
+            times["graph"].append((version, round(_replay_ms(graphs[version],
+                                                             GRAPH_LAUNCHES_EVAL), 5)))
+            with _csrc_dir(build, dirs[version]):
+                times["call"].append((version, round(_call_ms(
+                    lambda: group.group_ranks(merge, valid), 50), 5)))
+        chain, walk = _chain_depth(merge)
+        out[key] = {"bound_ms": _relabel_bound_ms(merge, valid)[0], "chain_depth": chain,
+                    "rows_plus_merges": walk, "merges": int(merge.sum()),
+                    **{f"{k}_ms": [list(t) for t in ts] for k, ts in times.items()}}
+        print(f"[{card}] A/B group_relabel {key} ({int(merge.sum())} merges): device ms "
+              f"by graph replay {times['graph']}, wrapper loop {times['call']}; old and new "
+              f"outputs bit-equal", flush=True)
+    print(json.dumps({"ab_group_relabel": out}), flush=True)
 
 
 def _kernel_times(recon, card, name, case, bound, n_sets, launches):
@@ -1854,35 +1937,61 @@ def _relabel_bound_ms(merge, valid):
     """(ms, "bytes" or "operations") for the group relabel on these inputs:
     the strictly lower triangle of merge (the rest is zero by contract, and
     neither the function nor the kernel reads it) and valid read once,
-    ranks and n_groups written once; per scene N(N-1)/2 steps of the chain
-    (a read of one merge bit), N compares and writes a merge that fires,
-    and the 2N-long presence and prefix pass, counted against the f32
-    rate."""
+    ranks and n_groups written once; per scene N(N-1)/2 tests of a merge
+    bit, N compares and selects a row holding a merge (its merges chain
+    through the row's own label and collapse into one N-wide step, see
+    group_relabel.cu), and the 2N-long presence and prefix pass, counted
+    against the f32 rate."""
     b, n = valid.shape
-    fired = int(merge.sum())
+    rows = int(merge.tril(-1).any(dim=-1).sum())
     return _bound(b * n * (n - 1) // 2 + valid.numel(), 4 * b * n + 4 * b,
-                  b * n * (n - 1) // 2 + fired * n + b * 4 * n)
+                  b * n * (n - 1) // 2 + rows * n + b * 4 * n)
 
 
-def _relabel_times(group, card, merge, valid, plain_iters):
+def _chain_depth(merge):
+    """(the kernel's chain on these inputs, a walk of every merge): the
+    largest, over the block's scenes, of rows holding a merge (one step a
+    row, see group_relabel.cu), and of rows holding a merge plus merges
+    (each merge changes a label: slot r's own)."""
+    tri = merge.tril(-1)
+    rows = tri.any(dim=-1).sum(dim=-1)
+    return int(rows.max()), int((rows + tri.sum(dim=(-2, -1))).max())
+
+
+def _relabel_times(group, card, merge, valid, plain_iters, label="main path"):
     """The relabel's row of measurements at one shape: device ms by CUDA
     graph replay of GRAPH_LAUNCHES_EVAL launches on one input set (the
     inputs, ~1 MB at (320, 57), stay in L2 whatever the method: the kernel
-    is a serial chain, not a stream of bytes), wrapper-loop ms, the plain
-    version's ms on the card, the bound and the serial depth."""
+    is a chain of merges, not a stream of bytes), wrapper-loop ms, the plain
+    version's ms on the card, the bound, the serial depth of the pairs'
+    loop (N(N-1)/2) and the kernel's chain depth."""
     b, n = valid.shape
     args = [(merge, valid)]
     ms = _replay_ms(_capture(group.group_ranks, args, GRAPH_LAUNCHES_EVAL), GRAPH_LAUNCHES_EVAL)
     call_ms = _call_ms(lambda: group.group_ranks(merge, valid), 50)
     plain_ms = _call_ms(lambda: group.group_ranks_plain(merge, valid), plain_iters)
     bound_ms, bound_by = _relabel_bound_ms(merge, valid)
-    depth = n * (n - 1) // 2
-    print(f"[{card}] group_relabel B={b} N={n}: device {ms:.4f} ms (graph replay), wrapper "
-          f"loop {call_ms:.4f} ms a call; plain version on the card {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.2%} of it reached; serial depth "
-          f"{depth} steps a scene, {int(merge.sum())} merges fired in the block", flush=True)
+    depth, (chain, walk) = n * (n - 1) // 2, _chain_depth(merge)
+    print(f"[{card}] group_relabel {label} B={b} N={n}: device {ms:.4f} ms (graph replay), "
+          f"wrapper loop {call_ms:.4f} ms a call; plain version on the card {plain_ms:.4f} ms; "
+          f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.2%} of it reached; serial "
+          f"depth {depth} steps a scene, chain depth {chain} (rows holding a merge, the most "
+          f"of a scene; rows + merges {walk}); {int(merge.sum())} merges fired in the block",
+          flush=True)
     return dict(ms=ms, kernel_ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, serial_depth=depth, shape=[b, n])
+                bound_by=bound_by, serial_depth=depth, chain_depth=chain,
+                rows_plus_merges=walk, shape=[b, n])
+
+
+def _all_merge(gpgraph_common, b, n):
+    """(merge, valid) on the card where every valid pair merges: N(N-1)/2
+    merges a full scene, the kernel's longest chain. Scene i has i % 4
+    padded slots."""
+    import torch
+
+    valid = torch.arange(n)[None] < (n - torch.arange(b) % 4)[:, None]
+    merge = gpgraph_common.merge_mask(torch.zeros((b, n, n)), torch.tensor(0.5), valid)
+    return merge.contiguous().cuda(), valid.cuda()
 
 
 def _relabel_check(group, merge, valid, label):
@@ -2348,14 +2457,26 @@ def _groups_zones_phase(card, recon, group, seq_data, profile_dir):
         label = {(1, 2 * BUCKET): "request (c), 150 pedestrians"}.get(shape, "main path")
         errs.append(_relabel_check(group, merge, valid, label))
     rng = np.random.default_rng(31)
-    for n, b in ((31, 3), (32, 3), (33, 3), (1025, 2)):
+    # Random masks, the kernel's tier edges (labels in registers up to 64,
+    # 128, 256 slots, in shared memory past them) among them.
+    for n, b in ((31, 3), (32, 3), (33, 3), (64, 3), (65, 3), (128, 3), (129, 3), (256, 3),
+                 (257, 3), (1025, 2)):
         dist = torch.from_numpy(rng.random((b, n, n)).astype(np.float32))
         valid = torch.from_numpy(np.arange(n)[None] < rng.integers(n // 2, n + 1, size=(b, 1)))
         merge = gpgraph_common.merge_mask(dist, torch.tensor(min(0.3, 2.0 / n)), valid)
         errs.append(_relabel_check(group, merge.cuda(), valid.cuda(),
                                    f"random mask, density {float(merge.float().mean()):.4f}"))
-    times = {shape: _relabel_times(group, card, *noted[shape], plain_iters=iters)
-             for shape, iters in (((EVAL_BATCH, N_MAX), 5), ((N_SCENES, BUCKET), 2))}
+    all_merge = {shape: _all_merge(gpgraph_common, *shape) for shape in ((4, N_MAX),
+                                                                         (1, 2 * BUCKET))}
+    for merge, valid in all_merge.values():
+        errs.append(_relabel_check(group, merge, valid, "all-merge mask"))
+    times = {shape: _relabel_times(group, card, *noted[shape], plain_iters=iters,
+                                   label="request (c)" if shape[0] == 1 else "main path")
+             for shape, iters in (((EVAL_BATCH, N_MAX), 5), ((N_SCENES, BUCKET), 2),
+                                  ((1, 2 * BUCKET), 5))}
+    times.update({("all-merge",) + shape: _relabel_times(group, card, *args, plain_iters=1,
+                                                         label="all-merge")
+                  for shape, args in all_merge.items()})
     group.LAUNCHES = before
     print(f"[{card}] step 11 (groups and zones) ran {time.perf_counter() - t_step:.1f} s",
           flush=True)
@@ -2800,7 +2921,17 @@ def main(argv):
     rerrs.append(rerr)
 
     if ab_dir is not None:
-        _ab(recon, build, ab_dir, card, _timed_kernels(main_case, serve_case))
+        # Each kernel whose source OLD_CSRC_DIR holds.
+        sources = {"fused_recon_metrics": recon.SOURCE,
+                   "fused_reconstruct": recon.RECONSTRUCT_SOURCE}
+        held = lambda source: os.path.exists(os.path.join(ab_dir, source))
+        kernels = [k for k in _timed_kernels(main_case, serve_case) if held(sources[k[0]])]
+        if not kernels and not held(group.SOURCE):
+            raise SystemExit(f"--ab: {ab_dir} holds none of the kernels' sources")
+        if kernels:
+            _ab(recon, build, ab_dir, card, kernels)
+        if held(group.SOURCE):
+            _ab_relabel(group, build, ab_dir, card, _relabel_main_inputs(card))
         return
 
     # --- 3. test() of both models, card against CPU ---
@@ -2900,7 +3031,10 @@ def main(argv):
         # No Pallas kernel: the device loop (lax.fori_loop) of find_group_indices.
         row("group_relabel", group.SOURCE, "eigentrajectory_tpu/models/gpgraph_common.py:30",
             counts["group"], relabel_err,
-            {**main_times, "at_301x128": relabel_times[(N_SCENES, BUCKET)]})]}))
+            {**main_times, "at_301x128": relabel_times[(N_SCENES, BUCKET)],
+             "at_1x256": relabel_times[(1, 2 * BUCKET)],
+             "all_merge_at_4x57": relabel_times[("all-merge", 4, N_MAX)],
+             "all_merge_at_1x256": relabel_times[("all-merge", 1, 2 * BUCKET)]})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

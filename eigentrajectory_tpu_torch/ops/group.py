@@ -7,7 +7,7 @@ on the device as a `lax.fori_loop` over the row-major pairs of one scene.
 The caller builds the merge mask (`dist <= th`, strictly below the
 diagonal, both slots valid); `group_ranks` relabels and ranks every scene of
 a block. CUDA tensors go to the hand-written kernel (`csrc/group_relabel.cu`,
-one block a scene, built at first use, see `build.py`) or raise; CPU tensors
+one warp a scene, built at first use, see `build.py`) or raise; CPU tensors
 go to the plain version. The results are integers: kernel and plain version
 agree bit for bit.
 """
@@ -21,8 +21,11 @@ import torch
 from . import build
 
 SOURCE = "group_relabel.cu"
-# Shared memory the kernel's block can hold: 13 bytes a slot.
-MAX_SLOTS = 227 * 1024 // 13
+# The most slots whose labels (4 bytes a slot), 2N-bit presence map with
+# its prefix counts and one staged row of merge bits (with its last column
+# and the row bits) fit in a block's 227 KB of shared memory: the largest N
+# with N + 2 * ceil(N / 32) + 2 * ceil(N / 16) + 1 <= 227 * 1024 / 4 words.
+MAX_SLOTS = 48_933
 
 # Kernel launches made by `group_ranks`, for showing that a run went through
 # the kernel. Callers may reset it to 0.
@@ -65,13 +68,13 @@ def group_ranks(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor,
 def _check_args(merge: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]:
     """Check the kernel's inputs on a CUDA device; returns (B, N)."""
     device = valid.device
-    if device.type != "cuda":
-        raise ValueError(f"the group relabel runs on CUDA or CPU tensors, got {device}")
     if valid.dim() != 2:
         raise ValueError(f"valid must be (B, N), got {tuple(valid.shape)}")
     b, n = valid.shape
     if n > MAX_SLOTS:
         raise ValueError(f"the group relabel kernel holds at most {MAX_SLOTS} slots, got {n}")
+    if device.type != "cuda":
+        raise ValueError(f"the group relabel runs on CUDA or CPU tensors, got {device}")
     for name, x, shape in (("merge", merge, (b, n, n)), ("valid", valid, (b, n))):
         if x.device != device or x.dtype != torch.bool or tuple(x.shape) != shape \
                 or not x.is_contiguous():

@@ -82,9 +82,12 @@ def _weights(tr):
     return {k: v.clone() for k, v in tr.model.state_dict().items()}
 
 
-def run(world, tmp, th):
+def run(world, tmp, th, chunks=()):
     """Every case at `world` ranks (this process's rank of them); `th` is
-    the GP-Graph threshold the test chose on the block."""
+    the GP-Graph threshold the test chose on the block. For each k of
+    `chunks` the two ET-STGCNN steps also run at micro_batches k
+    (`stgcnn_full@k`, `stgcnn_tail@k`): the single process running the
+    block in the rows that k ranks hold."""
     out = {}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)            # the same sums on every process
@@ -95,6 +98,10 @@ def run(world, tmp, th):
         data = st.data_train
         out["stgcnn_full"] = step(st, pad_scenes(data, [0, 1, 2, 3], st.n_max, 4))
         out["stgcnn_tail"] = step(st, pad_scenes(data, [4, 5], st.n_max, 4))
+        for k in chunks:
+            ck = trainer("stgcnn", world, tmp, tag=f"chunks{k}", micro_batches=k)
+            out[f"stgcnn_full@{k}"] = step(ck, pad_scenes(data, [0, 1, 2, 3], ck.n_max, 4))
+            out[f"stgcnn_tail@{k}"] = step(ck, pad_scenes(data, [4, 5], ck.n_max, 4))
         out["stgcnn_test"] = st.test(eval_batch=4)
         out["stgcnn_valid"] = st.valid(0)
 

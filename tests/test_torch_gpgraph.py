@@ -2,8 +2,10 @@
 
 The group relabel's plain version bitwise against the JAX package's
 `find_group_indices` on random merge matrices (densities 0.05-0.9, padded
-slots, N in {1, 2, 5, 33}); the wrapper's dispatch; the relabel kernel
-bitwise against its plain version on the card (marked `cuda`); pooling,
+slots, N in {1, 2, 5, 33} and the kernel's tier edges 64, 65, 128, 129),
+on all-merge and chained-quirk masks at the tier edges; the wrapper's
+dispatch and its slot limit; the relabel kernel bitwise against its plain
+version on the card (marked `cuda`); pooling,
 unpooling and the group mask; the GroupGenerator; both models' eval forward
 on blocks of scenes against `vmap` of the JAX model with the JAX init
 carried across (<= 1e-4); and `test()` from a checkpoint the JAX trainer
@@ -108,7 +110,7 @@ def jax_ranks(dist, th, valid):
 
 
 # ------------------------------------------------------------- the relabel
-@pytest.mark.parametrize("n", [1, 2, 5, 33])
+@pytest.mark.parametrize("n", [1, 2, 5, 33, 64, 65, 128, 129])
 def test_relabel_plain_version_is_bitwise_jax_find_group_indices(n):
     """Each scene of the block a density of merges from 0.05 to 0.9 and its
     own count of padded slots; ranks and group counts bit for bit."""
@@ -150,6 +152,54 @@ def test_relabel_reproduces_the_raw_column_index_quirk():
     assert ranks.tolist() == [[1, 0, 0, 1]] and int(n_groups) == int(want_groups[0]) == 2
 
 
+def pattern_dist(pattern, n):
+    """(1, n, n) distances that merge (<= 0.5) every pair ("all-merge", N(N-1)/2
+    merges in every row: the kernel's longest chain) or a fixed web of pairs whose
+    relabels land on raw column indices that are not the row's label
+    ("quirk": (r, r - 1), (r, r // 2), and (r, 0) every fifth row)."""
+    if pattern == "all-merge":
+        return np.zeros((1, n, n), np.float32)
+    dist = np.ones((n, n), np.float32)
+    for r in range(1, n):
+        for c in {r - 1, r // 2} | ({0} if r % 5 == 0 else set()):
+            dist[r, c] = dist[c, r] = 0.0
+    return dist[None]
+
+
+@pytest.mark.parametrize("pattern", ["all-merge", "quirk"])
+@pytest.mark.parametrize("n", [64, 65, 128, 129])
+def test_relabel_plain_version_is_bitwise_jax_on_merge_patterns(pattern, n):
+    """The plain version (what the kernel is held to on the card) against
+    `find_group_indices` at the kernel's tier edges, the last three slots
+    padding."""
+    dist = pattern_dist(pattern, n)
+    valid = (np.arange(n) < n - 3)[None]
+    want_ranks, want_groups = jax_ranks(dist, 0.5, valid)
+    dist_t, valid_t = torch.from_numpy(dist), torch.from_numpy(valid)
+    merge = tgc.merge_mask(dist_t, torch.tensor(0.5), valid_t)
+    if pattern == "all-merge":
+        assert int(merge.sum()) == (n - 3) * (n - 4) // 2
+    ranks, n_groups = group.group_ranks_plain(merge, valid_t)
+    np.testing.assert_array_equal(ranks.numpy(), want_ranks)
+    np.testing.assert_array_equal(n_groups.numpy(), want_groups)
+    assert int(n_groups[0]) == (4 if pattern == "all-merge" else int(want_groups[0]))
+
+
+def test_the_kernel_wrapper_refuses_more_slots_than_a_block_holds():
+    """MAX_SLOTS is the largest N whose labels, presence map with its prefix
+    counts and one staged row of merge bits (with its last column and the
+    row bits) fit in 227 KB of shared memory; one more slot is refused
+    before any device check."""
+    words = lambda k: k + 2 * -(-k // 32) + 2 * -(-k // 16) + 1
+    n = group.MAX_SLOTS
+    assert words(n) <= 227 * 1024 // 4 < words(n + 1)
+    for slots, match in ((n + 1, "at most 48933 slots"), (n, "CUDA or CPU")):
+        merge = torch.ones((1, slots, slots), dtype=torch.bool, device="meta")
+        valid = torch.ones((1, slots), dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match=match):
+            group.group_ranks(merge, valid)
+
+
 def test_the_wrapper_dispatches_on_the_tensors_device():
     """CPU tensors take the plain version without a launch; tensors on
     another device than the card or the CPU are refused."""
@@ -173,10 +223,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(320, 57), (3, 31), (3, 32), (3, 33), (2, 1025)])
-def test_group_relabel_kernel_is_bitwise_its_plain_version(cuda_device, b, n):
+@pytest.mark.parametrize("b,n,pattern", [
+    (320, 57, "random"), (3, 31, "random"), (3, 32, "random"), (3, 33, "random"),
+    (2, 1025, "random"), (3, 64, "random"), (3, 65, "random"), (3, 128, "random"),
+    (3, 129, "random"), (3, 256, "random"), (3, 257, "random"), (1, 256, "random"),
+    (4, 57, "all-merge"), (1, 256, "all-merge"), (2, 129, "quirk")])
+def test_group_relabel_kernel_is_bitwise_its_plain_version(cuda_device, b, n, pattern):
+    """Random masks (each scene its own count of valid slots), at the edges
+    of the kernel's register tiers (64, 128, 256 slots) and past them, and
+    the all-merge mask: every valid pair merges, the longest chain."""
     rng = np.random.default_rng(n)
-    dist = torch.from_numpy(rng.random((b, n, n)).astype(np.float32))
+    if pattern == "random":
+        dist = torch.from_numpy(rng.random((b, n, n)).astype(np.float32))
+    else:
+        dist = torch.from_numpy(np.repeat(pattern_dist(pattern, n), b, axis=0))
     valid = torch.from_numpy(np.arange(n)[None] < rng.integers(1, n + 1, size=(b, 1)))
     merge = tgc.merge_mask(dist, torch.tensor(min(0.3, 20.0 / n)), valid)
     want = group.group_ranks_plain(merge, valid)

@@ -79,9 +79,10 @@ def test_case_is_made_from_its_seed():
 def test_relabel_bound_counts_the_masks_bytes_and_the_merges_that_fire():
     """The group relabel's yardstick: the strictly lower triangle of merge
     (B*N(N-1)/2 bytes: the rest is zero by contract and is not read) and
-    valid in, ranks and n_groups (int32) out; operations the chain's pair steps, N
-    compares a merge that fires and the 4N presence and prefix pass a scene,
-    against the f32 rate. At the eval shape the bytes bound it."""
+    valid in, ranks and n_groups (int32) out; operations the tests of the
+    pairs' merge bits, N compares a row holding a merge and the 4N presence
+    and prefix pass a scene, against the f32 rate. At the eval shape the
+    bytes bound it."""
     import torch
 
     b, n = 320, 57
@@ -93,3 +94,48 @@ def test_relabel_bound_counts_the_masks_bytes_and_the_merges_that_fire():
     ops = b * n * (n - 1) // 2 + (b + 5) * n + b * 4 * n
     assert by == "bytes" and total / 3.35e12 > ops / 67e12
     assert ms == pytest.approx(total / 3.35e12 * 1e3, rel=1e-12)
+
+
+def _all_merge(b, n):
+    """Every pair of the strictly lower triangle merges, all slots valid."""
+    import torch
+
+    merge = torch.ones((b, n, n), dtype=torch.bool).tril(-1)
+    return merge, torch.ones((b, n), dtype=torch.bool)
+
+
+def _one_row(b, n):
+    """Scene 0's row n - 1 merges with every earlier slot, scene 1's row 5
+    with slot 2: n - 1 + 1 merges in two rows."""
+    import torch
+
+    merge = torch.zeros((b, n, n), dtype=torch.bool)
+    merge[0, n - 1, :n - 1] = True
+    merge[1, 5, 2] = True
+    return merge, torch.ones((b, n), dtype=torch.bool)
+
+
+@pytest.mark.parametrize("make,b,n,rows", [(_all_merge, 1, 256, 255), (_all_merge, 4, 57, 4 * 56),
+                                           (_one_row, 3, 150, 2)])
+def test_relabel_bound_counts_a_step_a_row_holding_a_merge(monkeypatch, make, b, n, rows):
+    """A row's merges chain through the row's own label and collapse into
+    one N-wide compare-and-select (group_relabel.cu's note), so the bound
+    counts N operations a row holding a merge, not a merge: the all-merge
+    (1, 256) mask is bound by its bytes, not by 32,640 merges x 256."""
+    merge, valid = make(b, n)
+    assert int(merge.any(dim=-1).sum()) == rows and int(merge.sum()) >= rows
+    seen = {}
+    real = chip_smoke._bound
+
+    def noting(read, write, ops):
+        seen.update(read=read, write=write, ops=ops)
+        return real(read, write, ops)
+
+    monkeypatch.setattr(chip_smoke, "_bound", noting)
+    ms, by = chip_smoke._relabel_bound_ms(merge, valid)
+    assert seen == {"read": b * n * (n - 1) // 2 + b * n, "write": 4 * b * n + 4 * b,
+                    "ops": b * n * (n - 1) // 2 + rows * n + 4 * b * n}
+    assert by == "bytes"
+    assert ms == pytest.approx((seen["read"] + seen["write"]) / 3.35e12 * 1e3, rel=1e-12)
+    if (b, n) == (1, 256):
+        assert seen["read"] + seen["write"] == 33924 and round(ms, 8) == 1.013e-05
