@@ -177,9 +177,31 @@ CUDA toolkit. It
    `ETPredictor(mesh=)` over every visible card and over cuda:0 named
    twice, within 1e-5 of `mesh=None`, fused_reconstruct once a replica; and
    the NCCL branch of the process-group helpers in a group of one;
-13. prints a JSON line with the three kernels' numbers (the launches of
-   every path, step 12's ranks' included), then as its last line
-   {"ok": true, "device": {...}}.
+13. the native loader on the main path, the dormant modules and the
+   analysis tools: writes seeded train/val/test split files in the ETH-UCY
+   text format (about 300 scenes and 1,150 pedestrians each, the size of
+   hotel's test split) and loads the test split with the native C++
+   preprocessor (built by g++ into the port's `_build/`) and with the
+   Python loader, bitwise equal, both walls printed; builds ET-STGCNN's
+   trainer (hotel configuration and checkpoint) from those files, which
+   must go through the native loader, and runs `test()`, which must launch
+   `fused_recon_metrics` once a block, card vs CPU and vs the same windows
+   handed in memory within 1e-4; then, card vs CPU in float32 from the
+   port's seeded init with every draw injected or from a seeded generator:
+   `PECNetCVAE` (both branches), `LBEBMCVAE` (train branch, Langevin noise
+   off) and its sampler alone (its ms for 20 steps printed), the full
+   `SocialImplicit`, `GraphTERNFull` with an injected endpoint set (all
+   within 1e-4 of scale), `GraphTERNFull` with pruning on the card (each
+   selected round one of the rounds drawn), `gmm_endpoint_sample` at a
+   near-zero std and one-hot pi (the chosen means), `batch_kmeans_fit` on
+   B = 8 problems (inertia within 1%), `compute_all` (within 1e-5) and
+   `col_scene_masked` (COL equal); `descriptor_evaluation.eval_dataset` on
+   the split files card vs CPU (within 1e-5); and a trainer that fits 2
+   epochs, then a fresh one whose `load_model()` must restore the loss log
+   the file holds. It prints each check's largest error;
+14. prints a JSON line with the three kernels' numbers (the launches of
+   every path, step 12's ranks' and step 13's included), then as its last
+   line {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
 (ET-PECNet's, ET-AgentFormer's, ET-DMRGCN's, ET-Graph-TERN's and step 11's
@@ -2851,6 +2873,363 @@ def _data_parallel_phase(card, recon, seq_data):
     return counts
 
 
+# --------------------------------------------------------------------------
+# Step 13: the native loader on the main path, the dormant modules, the
+# descriptor evaluation and the loss log of load_model()
+# --------------------------------------------------------------------------
+
+def _write_split(directory, rng):
+    """One split file in the ETH-UCY text format (`frame ped x y`, tab
+    separated, sorted, frames numbered in tens) over 360 frames: each of 150
+    pedestrians walks for 20-34 consecutive frames starting anywhere in the
+    file, a straight line plus the random-walk wiggle of
+    `make_synthetic_data`. That makes about 300 scenes of about 1,150
+    pedestrians, the size of hotel's test split."""
+    import numpy as np
+
+    rows = []
+    for ped in range(150):
+        length = int(rng.integers(20, 35))
+        t0 = int(rng.integers(0, 360 - length + 1))
+        start, vel = rng.normal(size=2) * 5, rng.normal(size=2)
+        path = start + vel * 0.4 * np.arange(length)[:, None] + \
+            0.05 * np.cumsum(rng.normal(size=(length, 2)), axis=0)
+        rows += [((t0 + i) * 10, ped + 1, x, y) for i, (x, y) in enumerate(path)]
+    rows.sort()
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "synthetic.txt"), "w") as f:
+        f.write("".join("\t".join(str(v) for v in r) + "\n" for r in rows))
+
+
+def _same_data(a, b):
+    import numpy as np
+
+    return a.seq_start_end == b.seq_start_end and all(
+        getattr(a, k).dtype == getattr(b, k).dtype and
+        np.array_equal(getattr(a, k), getattr(b, k))
+        for k in ("obs_traj", "pred_traj", "non_linear_ped", "loss_mask", "num_peds_in_seq"))
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max(max |want|, 1e-6), both moved to the CPU."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-6)
+
+
+def _hold(errors, label, err, tol):
+    errors[label] = err
+    if not err <= tol:
+        raise AssertionError(f"step 13 {label}: {err:.3g} over the tolerance {tol:g}")
+
+
+def _native_main_path(card, recon, ds_root, errors):
+    """(a): split files through the native loader and the Python loader,
+    bitwise; ET-STGCNN's trainer (hotel checkpoint) from the files, its
+    test() on the card against the CPU and against the same windows handed
+    in memory. Returns the launches of fused_recon_metrics."""
+    import torch
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.data import native_loader
+    from eigentrajectory_tpu_torch.data.dataset import load_trajectory_data
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+
+    test_dir = os.path.join(ds_root, "hotel", "test")
+    t0 = time.perf_counter()
+    lib = native_loader._load_lib()._name     # g++ at first use
+    t_build = time.perf_counter() - t0
+    walls = {True: [], False: []}          # use_native -> seconds, in turns
+    for _ in range(10):
+        for use_native in walls:
+            t0 = time.perf_counter()
+            data = load_trajectory_data(test_dir, use_native=use_native)
+            walls[use_native].append(time.perf_counter() - t0)
+            if use_native:
+                native = data
+            elif not _same_data(native, data):
+                raise AssertionError("step 13: the native loader is not bitwise the Python "
+                                     "loader")
+    if os.path.dirname(lib) != os.path.join(REPO, "eigentrajectory_tpu_torch", "_build"):
+        raise AssertionError(f"step 13: the native library was loaded from {lib}")
+    t_native, t_python = _median(walls[True]), _median(walls[False])
+    print(f"[{card}] step 13 (a) load of a test split of {native.num_scenes} scenes, "
+          f"{native.num_peds} pedestrians (host clock, 10 loads a route in turns): native "
+          f"median {t_native * 1e3:.3f} ms (first {walls[True][0] * 1e3:.3f}), Python median "
+          f"{t_python * 1e3:.3f} ms (first {walls[False][0] * 1e3:.3f}), "
+          f"{t_python / t_native:.2f}x; bitwise equal; library {os.path.relpath(lib, REPO)} "
+          f"built and loaded in {t_build:.3f} s", flush=True)
+
+    calls = []
+    load_native = native_loader.load_trajectory_data_native
+
+    def noting(data_dir, *args):
+        calls.append(os.path.basename(data_dir))
+        return load_native(data_dir, *args)
+
+    cfg = load_config(os.path.join(REPO, "configs", "eigentrajectory-stgcnn-hotel.json"),
+                      checkpoint_dir=CKPT_DIR, dataset_dir=ds_root, n_max_peds=N_MAX)
+    native_loader.load_trajectory_data_native = noting
+    try:
+        t0 = time.perf_counter()
+        tr = ETTorchTrainer(cfg, tag="parity")
+        t_init = time.perf_counter() - t0
+        tr_cpu = ETTorchTrainer(cfg, tag="parity", device="cpu")
+    finally:
+        native_loader.load_trajectory_data_native = load_native
+    if calls != ["train", "val", "test"] * 2:
+        raise AssertionError(f"step 13: the trainers loaded {calls} natively")
+    tr.load_model()
+    tr_cpu.load_model()
+    blocks = -(-tr.data_test.num_scenes // EVAL_BATCH)
+    n_peds = tr.data_test.num_peds
+    recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tr.test(eval_batch=EVAL_BATCH)
+    torch.cuda.synchronize()
+    t_test = time.perf_counter() - t0
+    launches = recon.LAUNCHES
+    if launches != blocks:
+        raise AssertionError(f"step 13: test() from files launched fused_recon_metrics "
+                             f"{launches} times for {blocks} block(s)")
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"step 13: non-finite metrics {res}")
+    res_cpu = tr_cpu.test(eval_batch=EVAL_BATCH)
+    in_memory = ETTorchTrainer(cfg, tag="parity",
+                               datasets=(tr.data_train, tr.data_val, tr.data_test))
+    in_memory.load_model()
+    before = recon.LAUNCHES
+    res_mem = in_memory.test(eval_batch=EVAL_BATCH)
+    launches_mem = recon.LAUNCHES - before
+    if launches_mem != blocks:
+        raise AssertionError(f"step 13: test() in memory launched {launches_mem} times")
+    _hold(errors, "(a) test() from files, card vs CPU",
+          max(abs(res[k] - v) / max(abs(v), 1.0) for k, v in res_cpu.items()), 1e-4)
+    _hold(errors, "(a) test() from files vs in memory",
+          max(abs(res[k] - v) / max(abs(v), 1.0) for k, v in res_mem.items()), 1e-4)
+    print(f"[{card}] step 13 (a) ET-STGCNN (hotel checkpoint) from split files: trainer "
+          f"with its three native loads {t_init:.3f} s, first test() {t_test * 1e3:.3f} ms "
+          f"(host clock, synchronized) over {tr.data_test.num_scenes} scenes ({n_peds} "
+          f"pedestrians) in {blocks} block(s) of {EVAL_BATCH}x{N_MAX}: {res}, "
+          f"fused_recon_metrics launches={launches}; CPU {res_cpu}; in memory {res_mem} "
+          f"({launches_mem} launches)", flush=True)
+    _host_times(lambda: tr.test(eval_batch=EVAL_BATCH), card,
+                f"step 13 (a) test() of the split loaded from files ({n_peds} peds)", n_peds,
+                runs=10)
+    return launches + launches_mem
+
+
+def _dormant_modules(card, errors):
+    """(b): the dormant modules card vs CPU in float32 from the port's
+    seeded init, every draw injected or from a seeded generator."""
+    import copy
+
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch import metrics as M
+    from eigentrajectory_tpu_torch.etspace import anchor
+    from eigentrajectory_tpu_torch.models import graphtern, implicit, lbebm, pecnet
+
+    rng = np.random.default_rng(13)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32))
+
+    def pair(module, prepare=lambda m: None):
+        torch.manual_seed(13)
+        cpu = module().eval()
+        prepare(cpu)
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    def both(fn, *args, **kw):
+        cuda = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+        kw_cuda = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        return fn[0](*args, **kw), fn[1](*cuda, **kw_cuda)
+
+    n = TRAIN_BATCH                           # a packed batch of 128 pedestrians
+    with torch.no_grad():
+        # PECNet CVAE, both branches
+        cpu, gpu = pair(lambda: pecnet.PECNetCVAE(K, K * S // 2 + 1))
+        past, ip, dest, eps = arr(n, K), arr(n, 2), arr(n, 2), arr(n, pecnet.ZDIM)
+        mask = torch.from_numpy(np.kron(np.eye(16, dtype=bool), np.ones((8, 8), bool)))
+        want, got = both((cpu, gpu), past, ip, eps=eps, train=False)
+        _hold(errors, "(b) PECNetCVAE eval", _scaled_err(got, want), 1e-4)
+        want, got = both((cpu, gpu), past, ip, mask, dest, eps=eps, train=True)
+        _hold(errors, "(b) PECNetCVAE train", max(_scaled_err(g, w) for g, w in zip(got, want)),
+              1e-4)
+
+        # LB-EBM CVAE, train branch without Langevin noise; the sampler alone
+        cpu, gpu = pair(lambda: lbebm.LBEBMCVAE(K, K * S // 2))
+        z0 = arr(n, lbebm.ZDIM, scale=lbebm.E_INIT_SIG)
+        eps = arr(n, lbebm.ZDIM)
+        want, got = both((cpu, gpu), past, dest, z_e_0=z0, eps=eps, train=True,
+                         langevin_noise=False)
+        _hold(errors, "(b) LBEBMCVAE train 7-tuple",
+              max(_scaled_err(g, w) for g, w in zip(got, want)), 1e-4)
+        cond = arr(n, lbebm.FDIM)
+        want, got = both((cpu.sample_langevin_prior_z, gpu.sample_langevin_prior_z), z0, cond,
+                         with_noise=False)
+        _hold(errors, "(b) Langevin sampler", _scaled_err(got, want), 1e-4)
+        z0_card, cond_card = z0.cuda(), cond.cuda()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def langevin():
+            return gpu.sample_langevin_prior_z(z0_card, cond_card, generator=gen)
+
+        langevin()                            # warm-up
+        ms = sorted(_sync_ms(langevin)[2] for _ in range(7))
+        print(f"[{card}] step 13 (b) Langevin prior sampler, {lbebm.E_L_STEPS} steps at "
+              f"N = {n}, noise on: median {ms[3]:.3f} ms, min {ms[0]:.3f} ms, max "
+              f"{ms[-1]:.3f} ms (CUDA events over 7 runs after a warm-up)", flush=True)
+
+        # The full Social-Implicit
+        def draw_scalars(model):              # the init's 0 would zero both streams
+            gen = torch.Generator().manual_seed(5)
+            for name, p in model.named_parameters():
+                if name.endswith(("global_w", "local_w", "noise_w")):
+                    p.copy_(0.5 + torch.rand(p.shape, generator=gen))
+
+        cpu, gpu = pair(implicit.SocialImplicit, draw_scalars)
+        v = arr(1, 2, 8, N_MAX)
+        v[0, :, 0] = torch.from_numpy(rng.choice([0.005, 0.05, 0.5, 2.0], size=(2, N_MAX))
+                                      .astype(np.float32))
+        valid = torch.arange(N_MAX) < 50
+        want, got = both((cpu, gpu), v, valid, noise=arr(S, 2))
+        _hold(errors, "(b) SocialImplicit", _scaled_err(got, want), 1e-4)
+
+        # Graph-TERN: the full model with an injected endpoint set
+        cpu, gpu = pair(lambda: graphtern.GraphTERNFull(n_smpl=S))
+        obs = arr(1, 8, N_MAX, 2, scale=3.0)
+        rel = torch.cat([torch.zeros_like(obs[:, :1]), obs[:, 1:] - obs[:, :-1]], dim=1)
+        s_obs = torch.stack([obs, rel], dim=1)
+        want, got = both((cpu, gpu), s_obs, valid, endpoint_set=arr(S, N_MAX, 2))
+        _hold(errors, "(b) GraphTERNFull", max(_scaled_err(g, w) for g, w in zip(got, want)),
+              1e-4)
+        v_init, v_pred, v_refi = gpu(s_obs.cuda(), valid.cuda(), pruning=2,
+                                     generator=torch.Generator(device="cuda").manual_seed(1))
+        redraw = torch.Generator(device="cuda").manual_seed(1)
+        rounds = torch.stack([graphtern.gmm_endpoint_sample(v_init, S, 3, prune=2,
+                                                            generator=redraw)
+                              for _ in range(S)])
+        if tuple(v_refi.shape) != (S, T, N_MAX, 2) or not torch.isfinite(v_refi).all() or \
+                not torch.equal(v_pred[:, 0], graphtern.prune_select(rounds)) or \
+                not all(any(torch.equal(v_pred[:, 0, p], rounds[r, :, p]) for r in range(S))
+                        for p in range(N_MAX)):
+            raise AssertionError("step 13: GraphTERNFull's pruning did not select drawn rounds")
+
+        # GMM sampling at a near-zero std with one-hot pi: the chosen means
+        m, ways = 8, 3
+        heads = arr(1, m, N_MAX, 5 * ways)
+        chosen = []
+        for w in range(ways):
+            heads[..., 5 * w + 2:5 * w + 4] = -20.0
+            top = torch.from_numpy(rng.integers(0, m, size=N_MAX))
+            logits = torch.full((m, N_MAX), -30.0)
+            logits[top, torch.arange(N_MAX)] = 30.0
+            heads[0, :, :, 5 * w + 4] = logits
+            chosen.append(heads[0, top, torch.arange(N_MAX), 5 * w:5 * w + 2])
+        got = graphtern.gmm_endpoint_sample(heads.cuda(), S, ways,
+                                            generator=torch.Generator(device="cuda").manual_seed(2))
+        _hold(errors, "(b) gmm_endpoint_sample collapse",
+              _scaled_err(got, torch.stack(chosen).mean(0).expand(S, -1, -1)), 1e-5)
+
+    # batch k-means: B = 8 problems, card vs CPU by inertia
+    x = arr(8, 512, K)
+    x += torch.from_numpy(rng.normal(size=(8, 1, K)).astype(np.float32)) * 4
+    centers = {dev: anchor.batch_kmeans_fit(torch.Generator().manual_seed(3), x.to(dev), S)
+               .cpu() for dev in ("cpu", "cuda")}
+    inertia = {dev: ((x[:, :, None] - c[:, None]) ** 2).sum(-1).amin(-1).sum(-1)
+               for dev, c in centers.items()}
+    _hold(errors, "(b) batch_kmeans_fit inertia",
+          float(((inertia["cuda"] - inertia["cpu"]).abs() / inertia["cpu"]).max()), 0.01)
+
+    # compute_all and col_scene_masked: walkers 10 apart and two close pairs
+    pred = arr(S, N_MAX, T, 2, scale=0.3) + 10.0 * torch.arange(N_MAX)[:, None, None]
+    pred[:, 1] = pred[:, 0] + 0.05
+    pred[:5, 3] = pred[:5, 4] + 0.1
+    # GT beside each walker, so that the FDEs are O(1) and no two samples
+    # come within rounding of a tie
+    gt = arr(N_MAX, T, 2, scale=0.3) + 10.0 * torch.arange(N_MAX)[:, None, None]
+    valid = torch.arange(N_MAX) < 50
+    scene = torch.arange(N_MAX) // 3
+    same = scene[:, None] == scene[None, :]
+    want, got = both((M.compute_all, M.compute_all), pred, gt, valid)
+    _hold(errors, "(b) compute_all ADE/FDE/TCC",
+          max(_scaled_err(g, w) for g, w in zip(got[:3], want[:3])), 1e-5)
+    got_sm = M.col_scene_masked(pred.cuda(), valid.cuda(), same.cuda()).cpu()
+    want_sm = M.col_scene_masked(pred, valid, same)
+    if not (torch.equal(got[3].cpu(), want[3]) and torch.equal(got_sm, want_sm)):
+        raise AssertionError("step 13: COL card vs CPU not equal")
+    if want[3][:2].tolist() != [100.0, 100.0] or want_sm[3] != 25.0 or want_sm[4] != 25.0:
+        raise AssertionError(f"step 13: COL {want[3][:5]}, scene-masked {want_sm[:5]}")
+    errors["(b) COL, scene-masked COL (exact)"] = 0.0
+
+
+def _descriptor_eval(card, ds_root, errors):
+    """(c): descriptor_evaluation.eval_dataset on the split files, card vs
+    CPU."""
+    import torch
+    from eigentrajectory_tpu_torch.analysis import descriptor_evaluation
+
+    t0 = time.perf_counter()
+    rows = descriptor_evaluation.eval_dataset(os.path.join(ds_root, "hotel"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows_cpu = descriptor_evaluation.eval_dataset(os.path.join(ds_root, "hotel"), device="cpu")
+    _hold(errors, "(c) descriptor_evaluation", max(
+        abs(r[k] - c[k]) for r, c in zip(rows, rows_cpu) for k in ("obs_error", "pred_error")),
+        1e-5)
+    svd6 = next(r for r in rows if r["method"] == "svd" and r["k"] == 6)
+    print(f"[{card}] step 13 (c) descriptor_evaluation.eval_dataset: {len(rows)} descriptors "
+          f"in {wall:.3f} s on the card; SVD k=6 obs {svd6['obs_error']:.6f} pred "
+          f"{svd6['pred_error']:.6f}", flush=True)
+
+
+def _log_restored(card, ds_root):
+    """(d): a trainer fits 2 epochs; a fresh one's load_model() restores
+    the loss log written beside the checkpoint."""
+    from eigentrajectory_tpu_torch.config import load_config
+    from eigentrajectory_tpu_torch.train import ETTorchTrainer
+    from eigentrajectory_tpu_torch.train.trainer import read_log
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = load_config(os.path.join(REPO, "configs", "eigentrajectory-stgcnn-hotel.json"),
+                          checkpoint_dir=ckpt_dir, dataset_dir=ds_root, n_max_peds=N_MAX)
+        tr = ETTorchTrainer(cfg, tag="smoke")
+        tr.init_descriptor()
+        tr.fit(num_epochs=2, verbose=False)
+        with open(os.path.join(tr.checkpoint_dir, "log.pkl"), "rb") as f:
+            written = read_log(f)
+        best = min(range(2), key=lambda e: tr.log["val_loss"][e])
+        fresh = ETTorchTrainer(cfg, tag="smoke", datasets=(tr.data_train, tr.data_val,
+                                                            tr.data_test))
+        fresh.load_model()
+        if fresh.log != written or written != {k: v[:best + 1] for k, v in tr.log.items()}:
+            raise AssertionError(f"step 13: load_model() log {fresh.log} vs the file's "
+                                 f"{written} (the run's {tr.log})")
+    print(f"[{card}] step 13 (d) load_model() restored the loss log: {fresh.log}", flush=True)
+
+
+def _native_dormant_phase(card, recon):
+    """Step 13. Returns the launches of fused_recon_metrics."""
+    import numpy as np
+
+    t_step = time.perf_counter()
+    errors = {}
+    with tempfile.TemporaryDirectory() as ds_root:
+        rng = np.random.default_rng(2013)
+        for split in ("train", "val", "test"):
+            _write_split(os.path.join(ds_root, "hotel", split), rng)
+        launches = _native_main_path(card, recon, ds_root, errors)
+        _dormant_modules(card, errors)
+        _descriptor_eval(card, ds_root, errors)
+        _log_restored(card, ds_root)
+    for label, err in errors.items():
+        print(f"[{card}] step 13 {label}: largest error {err:.3g}", flush=True)
+    print(f"[{card}] step 13 (native loader, dormant modules, analysis, loss log) ran "
+          f"{time.perf_counter() - t_step:.1f} s", flush=True)
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -3012,6 +3391,9 @@ def main(argv):
     recon_metrics_launches += dp_counts["recon_metrics"]
     reconstruct_launches += dp_counts["reconstruct"]
     counts["group"] += dp_counts["group"]
+
+    # --- 13. the native loader on the main path; dormant modules; analysis; the log ---
+    recon_metrics_launches += _native_dormant_phase(card, recon)
 
     def row(name, source, replaces, launches, err, measured):
         return {"name": name, "route": "cuda",

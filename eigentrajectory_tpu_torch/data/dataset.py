@@ -1,11 +1,12 @@
 """ETH-UCY trajectory dataset ingestion (host-side NumPy).
 
-A copy of the NumPy path of `eigentrajectory_tpu/data/dataset.py`: sliding
+A copy of `eigentrajectory_tpu/data/dataset.py`: sliding
 windows of obs_len+pred_len frames, keeping only pedestrians observed at every
 frame of the window, 4-decimal coordinate rounding, the strict `> min_ped`
 scene filter and a quadratic-polyfit non-linearity flag, and the flip
 augmentation of the descriptor fit. Its output is bitwise equal to the JAX
-package's (tests/test_torch_config_data.py).
+package's (tests/test_torch_config_data.py). Tab-separated splits go through
+the native preprocessor of `native_loader` by default, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -109,8 +110,20 @@ def load_trajectory_data(
     threshold: float = 0.02,
     min_ped: int = 1,
     delim: str = "\t",
+    use_native: bool = True,
 ) -> TrajectoryData:
-    """Build TrajectoryData from a directory of raw txt files."""
+    """Build TrajectoryData from a directory of raw txt files.
+
+    Tab-separated files go through the native C++ preprocessor
+    (`native_loader`), whose output is bitwise this function's Python route;
+    a failed build of it raises. `use_native=False` takes the Python route.
+    """
+    if use_native and delim == "\t":
+        from .native_loader import load_trajectory_data_native
+
+        return load_trajectory_data_native(data_dir, obs_len, pred_len, skip, threshold,
+                                           min_ped)
+
     seq_len = obs_len + pred_len
     scenes: List[np.ndarray] = []
     for name in sorted(os.listdir(data_dir)):

@@ -1,4 +1,4 @@
-from .anchor import generate_anchors, kmeans_fit, kmeans_predict, refine
+from .anchor import batch_kmeans_fit, generate_anchors, kmeans_fit, kmeans_predict, refine
 from .descriptor import (ETBasis, fit_basis, project, reconstruct, reconstruct_norm,
                          truncated_svd)
 from .facade import ETParams, calculate_parameters, et_forward, moving_mask

@@ -83,6 +83,18 @@ def kmeans_fit(generator: torch.Generator, x: torch.Tensor, n_clusters: int,
     return torch.stack([c for c, _ in runs])[best]
 
 
+def batch_kmeans_fit(generator: torch.Generator, x: torch.Tensor, n_clusters: int,
+                     n_init: int = 10, max_iter: int = 300, tol: float = 1e-6) -> torch.Tensor:
+    """Independent k-means problems over the leading axis: x (B, N, d) ->
+    centres (B, S, d), one `kmeans_fit` each. Each problem draws from a CPU
+    generator of its own, seeded from `generator`."""
+    seeds = torch.randint(2 ** 62, (x.shape[0],), generator=generator)
+    return torch.stack([
+        kmeans_fit(torch.Generator().manual_seed(int(seed)), xi, n_clusters, n_init, max_iter,
+                   tol)
+        for seed, xi in zip(seeds, x)])
+
+
 def kmeans_predict(centers: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Assign points (N, d) to the nearest centres (S, d) -> labels (N,)."""
     return torch.argmin(_pairwise_sq_dist(x, centers), dim=1)

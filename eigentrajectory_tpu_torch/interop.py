@@ -211,22 +211,31 @@ def _flatten(tree: Dict, names: Dict[str, str], prefix: Tuple[str, ...] = ()):
             yield ".".join(prefix + (names.get(key, key),)), value
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETParams]:
-    """Map a decoded {params, batch_stats, et} tree onto the port.
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
 
-    Returns a state dict for the predictor (conv `kernel` (already OIHW) ->
+
+def module_state_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX module's {params[, batch_stats]} tree onto the port's names:
+    a state dict for the port's module (conv `kernel` (already OIHW) ->
     `weight`, linear `kernel` (in, out) -> `weight` (out, in), transposed,
     BatchNorm and LayerNorm `scale` -> `weight`, PReLU `alpha` -> `weight`,
     the bare kernels and biases by their own names, untransposed,
-    batch_stats `mean`/`var` -> `running_mean`/`running_var`) and the
-    ETParams, all as CPU float tensors.
-    """
-    def t(x):
-        return torch.from_numpy(np.array(x))
+    batch_stats `mean`/`var` -> `running_mean`/`running_var`), as CPU
+    tensors of the tree's types."""
+    state = {name: _tensor(value) for name, value in
+             _flatten(variables["params"], _PARAM_NAMES)}
+    state.update((name, _tensor(value)) for name, value in
+                 _flatten(variables.get("batch_stats", {}), _STAT_NAMES))
+    return state
 
-    state = {name: t(value) for name, value in _flatten(tree["params"], _PARAM_NAMES)}
-    state.update((name, t(value)) for name, value in
-                 _flatten(tree.get("batch_stats", {}), _STAT_NAMES))
+
+def params_from_jax(tree: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], ETParams]:
+    """Map a decoded {params, batch_stats, et} checkpoint tree onto the
+    port: the predictor's state dict (`module_state_from_jax`) and the
+    ETParams, all as CPU float tensors."""
+    t = _tensor
+    state = module_state_from_jax(tree)
     et = tree["et"]
     params = ETParams(
         basis_m=ETBasis(t(et["basis_m"]["U_obs"]), t(et["basis_m"]["U_pred"])),

@@ -72,13 +72,30 @@ def col(pred: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
     pred (..., S, N, T, 2), valid (..., N) bool -> (..., N).
     """
+    return _col(pred, valid[..., :, None] & valid[..., None, :])
+
+
+def col_scene_masked(pred: torch.Tensor, valid: torch.Tensor,
+                     same_scene: torch.Tensor) -> torch.Tensor:
+    """COL over the pairs of one scene only, for flat multi-scene batches:
+    pred (..., S, N, T, 2), valid (..., N), same_scene (..., N, N) bool ->
+    (..., N)."""
+    return _col(pred, same_scene & valid[..., :, None] & valid[..., None, :])
+
+
+def compute_all(pred: torch.Tensor, gt: torch.Tensor, valid: torch.Tensor):
+    """(ade, fde, tcc, col), each (..., N), in one call."""
+    return ade(pred, gt), fde(pred, gt), tcc(pred, gt), col(pred, valid)
+
+
+def _col(pred: torch.Tensor, pair_ok: torch.Tensor) -> torch.Tensor:
+    """COL over the pairs where pair_ok (..., N, N) holds."""
     thres = 0.2
     n = pred.shape[-3]
     window = _dense_window(pred)                            # (..., S, Td, N, 2)
     dist = torch.linalg.vector_norm(
         window[..., :, None, :] - window[..., None, :, :], dim=-1)  # (..., S, Td, N, N)
-    # Exclude self-pairs and any pair touching an invalid slot.
-    pair_ok = valid[..., :, None] & valid[..., None, :]
+    # Exclude self-pairs and every pair that is not ok.
     block = torch.eye(n, dtype=dist.dtype, device=dist.device) + (~pair_ok).to(dist.dtype)
     dist = dist + block[..., None, None, :, :]
     col_mask = dist.amin(dim=-3) < thres                    # (..., S, N, N)

@@ -5,8 +5,8 @@ The counterpart of `eigentrajectory_tpu/models/implicit.py`
 magnitude of their first ET coefficient, against BINS, and each zone's
 pedestrians go through that zone's SocialCellGlobal (a 2D conv stream over
 (time, pedestrian) plus a per-pedestrian 1D stream, fused by learned
-scalars). Noise is off (KSTEPS = 1): `noise_w` exists as a parameter and is
-never used. ET wiring: spatial 1 -> s, temporal k+2 -> k.
+scalars). Noise is off (KSTEPS = 1): `noise_w` exists as a parameter and the
+Light model never uses it. ET wiring: spatial 1 -> s, temporal k+2 -> k.
 
 The global cell's 3x3 convs mix *adjacent pedestrians of the zone's
 compacted order*. So each scene's zone members are moved to the front of
@@ -15,11 +15,14 @@ runs on the whole masked row, and its output is scattered back. All four
 cells run on every block, as the JAX model runs them, so an empty zone's
 parameters still get a zero gradient (and their weight decay).
 
-The dormant full `SocialImplicit` (noise sampling) is not ported.
+The full `SocialImplicit` (two channels, KSTEPS samples from a shared
+N(0, I) draw scaled per zone by `noise_w` and NOISE_WEIGHT) never runs in
+the ET pipeline; it is the counterpart of the JAX package's dormant module,
+held against it by tests/test_torch_dormant.py.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +30,7 @@ from torch import nn
 from .common import TorchConv2d, zero_invalid
 
 BINS = (0.0, 0.01, 0.1, 1.2)
+NOISE_WEIGHT = (0.05, 1, 4, 8)
 
 
 class Conv1dTorch(nn.Module):
@@ -83,8 +87,14 @@ class SocialCellGlobal(nn.Module):
         self.highway = TorchConv2d(temporal_input, temporal_output, (1, 1))
         self.tpcnn = TorchConv2d(temporal_input, temporal_output, (3, 3), padding=(1, 1))
 
-    def forward(self, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        # v (B, C, T, V), valid (B, V) -> (B, C_out, T_out, V)
+    def forward(self, v: torch.Tensor, valid: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                noise_scale: float = 1.0) -> torch.Tensor:
+        # v (B, C, T, V), valid (B, V) -> (B, C_out, T_out, V). With `noise`
+        # (KSTEPS, C, 1, 1) a row of one scene becomes KSTEPS samples of it,
+        # each with noise_w * noise_scale * its draw added to the input.
+        if noise is not None:
+            v = v + self.noise_w * noise_scale * noise
+            valid = valid.expand(v.shape[0], -1)
         v_ped = self.ped(v)
         v = zero_invalid(v, valid, 3)
         h = torch.relu(self.feat(v)) + self.highway_input(v)
@@ -94,10 +104,11 @@ class SocialCellGlobal(nn.Module):
 
 
 def zones(v: torch.Tensor) -> torch.Tensor:
-    """(B, V) zone of each pedestrian: the number of BINS at or below |c_0|,
-    less one, in [0, len(BINS) - 1]."""
+    """(B, V) zone of each pedestrian: the number of BINS at or below the
+    inf-norm over the channels at t = 0 (|c_0| for one channel), less one,
+    in [0, len(BINS) - 1]."""
     bins = torch.tensor(BINS, dtype=v.dtype, device=v.device)
-    norm = v[:, 0, 0, :].abs()
+    norm = v[:, :, 0, :].abs().amax(dim=1)
     zone = (norm[:, None, :] >= bins[None, :, None]).sum(dim=1) - 1
     return zone.clamp(0, len(BINS) - 1)
 
@@ -113,6 +124,28 @@ def compaction(sel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return order, torch.argsort(order, dim=1)
 
 
+def route_by_zone(cells: Sequence[SocialCellGlobal], v: torch.Tensor, valid: torch.Tensor,
+                  out_shape: Tuple[int, ...],
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each zone's pedestrians through its cell: moved to the front of the
+    row (`compaction`), the cell run on the masked row, the output scattered
+    back. v (B, C, T, V), valid (B, V) -> out_shape (B', C_out, T_out, V),
+    B' = KSTEPS where `noise` (KSTEPS, C, 1, 1) is given (B = 1)."""
+    b, c, t, n = v.shape
+    zone = zones(v)
+    out = v.new_zeros(out_shape)
+    for i, cell in enumerate(cells):
+        sel = (zone == i) & valid
+        order, inverse = compaction(sel)
+        sel_sorted = torch.gather(sel, 1, order)
+        v_i = torch.gather(v, 3, order[:, None, None, :].expand(b, c, t, n))
+        extra = {} if noise is None else {"noise": noise, "noise_scale": NOISE_WEIGHT[i]}
+        out_i = cell(zero_invalid(v_i, sel_sorted, 3), sel_sorted, **extra)
+        out_i = torch.gather(out_i, 3, inverse[:, None, None, :].expand(out_shape))
+        out = torch.where(sel[:, None, None, :], out_i, out)
+    return out
+
+
 class SocialImplicitLight(nn.Module):
     """SocialImplicitLight with a per-scene zone compaction."""
 
@@ -126,18 +159,36 @@ class SocialImplicitLight(nn.Module):
 
     def forward(self, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         # v (B, 1, T, V) -> (B, s, T_out, V)
-        b, c, t, n = v.shape
-        zone = zones(v)
-        out = v.new_zeros((b, *self.out_shape, n))
+        cells = [getattr(self, f"cell_{i}") for i in range(len(BINS))]
+        return route_by_zone(cells, v, valid, (v.shape[0], *self.out_shape, v.shape[3]))
+
+
+class SocialImplicit(nn.Module):
+    """The full SocialImplicit over one scene, as the JAX module takes it:
+    v (1, C, T, V), valid (V,) -> (KSTEPS, C_out, T_out, V). The (KSTEPS, C)
+    standard-normal draw `noise` is injected, or drawn from `generator` (on
+    the input's device) where it is None. Dormant: nothing in the ET
+    pipeline calls it."""
+
+    def __init__(self, spatial_input: int = 2, spatial_output: int = 2,
+                 temporal_input: int = 8, temporal_output: int = 12):
+        super().__init__()
+        self.spatial_input = spatial_input
+        self.out_shape = (spatial_output, temporal_output)
         for i in range(len(BINS)):
-            sel = (zone == i) & valid
-            order, inverse = compaction(sel)
-            sel_sorted = torch.gather(sel, 1, order)
-            v_i = torch.gather(v, 3, order[:, None, None, :].expand(b, c, t, n))
-            out_i = getattr(self, f"cell_{i}")(zero_invalid(v_i, sel_sorted, 3), sel_sorted)
-            out_i = torch.gather(out_i, 3, inverse[:, None, None, :].expand(out.shape))
-            out = torch.where(sel[:, None, None, :], out_i, out)
-        return out
+            self.add_module(f"cell_{i}", SocialCellGlobal(
+                spatial_input, spatial_output, temporal_input, temporal_output))
+
+    def forward(self, v: torch.Tensor, valid: torch.Tensor, ksteps: int = 20,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if noise is None:
+            noise = torch.randn((ksteps, self.spatial_input), generator=generator,
+                                device=v.device, dtype=v.dtype)
+        noise = noise[:, :, None, None].to(v.dtype)
+        cells = [getattr(self, f"cell_{i}") for i in range(len(BINS))]
+        return route_by_zone(cells, v, valid[None], (noise.shape[0], *self.out_shape, v.shape[3]),
+                             noise=noise)
 
 
 def make_model(cfg) -> SocialImplicitLight:

@@ -10,12 +10,15 @@ collated regime is one row (B = 1) whose mask is block-diagonal by scene.
 ET wiring: past_length = k // 2, so the encoder takes the k coefficients;
 future_length = k * s // 2 + 1, so the predictor emits k * s values; the
 scene-centred origin is both the "destination" and the initial position.
-The CVAE forward with latent sampling never runs in the ET pipeline and is
-not ported.
+
+`PECNetCVAE`, the full CVAE forward with latent sampling, never runs in the
+ET pipeline (neither package's trainer nor predictor reaches it); it is the
+counterpart of the JAX package's dormant module, held against it by
+tests/test_torch_dormant.py.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,11 +28,15 @@ from .common import TorchMLP, zero_invalid
 # The widths of the JAX module (the reference's optimal.yaml).
 ENC_PAST_SIZE = (512, 256)
 ENC_DEST_SIZE = (8, 16)
+ENC_LATENT_SIZE = (8, 50)
+DEC_SIZE = (1024, 512, 1024)
 PREDICTOR_SIZE = (1024, 512, 256)
 NON_LOCAL_THETA = (256, 128, 64)
 NON_LOCAL_PHI = (256, 128, 64)
 NON_LOCAL_G = (256, 128, 64)
 FDIM = 16
+ZDIM = 16
+SIGMA = 1.3
 NON_LOCAL_DIM = 128
 NONLOCAL_POOLS = 3
 
@@ -71,6 +78,61 @@ class PECNetPredict(nn.Module):
             feat = _social_pool(self.non_local_theta, self.non_local_phi,
                                 self.non_local_g, feat, mask)
         return self.predictor(feat)                          # (B, N, k * s)
+
+
+class PECNetCVAE(nn.Module):
+    """The full PECNet CVAE forward over (N, .) pedestrians of one scene
+    (or packed batch), as the JAX module takes them. Dormant: nothing in the
+    ET pipeline calls it.
+
+    train=True: the destination is encoded, a latent (mu, logvar) inferred,
+    z = eps * exp(logvar / 2) + mu decoded into the destination, and the
+    predictor runs on the socially pooled features; returns (generated_dest,
+    mu, logvar, pred_future). train=False: z = eps * sigma, returns the
+    generated destination. `eps` (N, zdim) is injected, or drawn from
+    `generator` (on the inputs' device) where it is None.
+    """
+
+    def __init__(self, k: int, future_length: int, fdim: int = FDIM, zdim: int = ZDIM,
+                 sigma: float = SIGMA):
+        super().__init__()
+        self.zdim, self.sigma = zdim, sigma
+        feat = 2 * fdim + 2
+        self.encoder_past = TorchMLP(k, ENC_PAST_SIZE, fdim)
+        self.encoder_dest = TorchMLP(2, ENC_DEST_SIZE, fdim)
+        self.encoder_latent = TorchMLP(2 * fdim, ENC_LATENT_SIZE, 2 * zdim)
+        self.decoder = TorchMLP(fdim + zdim, DEC_SIZE, 2)
+        self.non_local_theta = TorchMLP(feat, NON_LOCAL_THETA, NON_LOCAL_DIM)
+        self.non_local_phi = TorchMLP(feat, NON_LOCAL_PHI, NON_LOCAL_DIM)
+        self.non_local_g = TorchMLP(feat, NON_LOCAL_G, feat)
+        self.predictor = TorchMLP(feat, PREDICTOR_SIZE, 2 * (future_length - 1))
+
+    def forward(self, past: torch.Tensor, initial_pos: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, dest: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        # past (N, k), initial_pos / dest (N, 2), mask (N, N) bool
+        ftraj = self.encoder_past(past)
+        if train and (mask is None or dest is None):
+            raise ValueError("train=True requires both `dest` and `mask`")
+        if eps is None:
+            eps = torch.randn((past.shape[0], self.zdim), generator=generator,
+                              device=past.device, dtype=past.dtype)
+        if train:
+            latent = self.encoder_latent(torch.cat([ftraj, self.encoder_dest(dest)], dim=1))
+            mu, logvar = latent[:, :self.zdim], latent[:, self.zdim:]
+            z = eps * torch.exp(0.5 * logvar) + mu
+        else:
+            z = eps * self.sigma
+        generated_dest = self.decoder(torch.cat([ftraj, z], dim=1))
+        if not train:
+            return generated_dest
+
+        feat = torch.cat([ftraj, self.encoder_dest(generated_dest), initial_pos], dim=1)[None]
+        for _ in range(NONLOCAL_POOLS):
+            feat = _social_pool(self.non_local_theta, self.non_local_phi,
+                                self.non_local_g, feat, mask[None])
+        return generated_dest, mu, logvar, self.predictor(feat[0])
 
 
 def make_model(cfg) -> nn.Module:

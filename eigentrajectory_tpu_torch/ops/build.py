@@ -70,6 +70,27 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
+def compile_library(command: List[str], out: str, what: str) -> None:
+    """Run the compiler `command` with the output path appended, write its
+    report beside `out` as `<name>.log`, then move the library to `out` in
+    one step, so that concurrent builds (threads, xdist workers) never load
+    a half-written file. Raises with the compiler's output when it fails."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    try:
+        proc = subprocess.run([*command, tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(command[0])} failed on {what} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def build(source: str) -> str:
     """Compile `source` unless its library exists; return the library path.
 
@@ -79,22 +100,7 @@ def build(source: str) -> str:
     out = library_path(source)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        with open(out[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)   # atomic: concurrent builders see a whole file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    compile_library([_nvcc(), *NVCC_FLAGS, os.path.join(CSRC_DIR, source), "-o"], out, source)
     return out
 
 

@@ -103,6 +103,26 @@ class StepPart(NamedTuple):
     center: Optional[torch.Tensor] = None
 
 
+class _PlainUnpickler(pickle.Unpickler):
+    """Unpickles containers and numbers only: any class lookup raises."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"log.pkl holds {module}.{name}: only a dict of "
+                                     f"lists of floats is read")
+
+
+def read_log(fp) -> Dict[str, List[float]]:
+    """The loss log that either package writes as `log.pkl`: a dict of two
+    lists of floats ("train_loss", "val_loss"). It is read without admitting
+    any class, so a file holding anything else raises."""
+    log = _PlainUnpickler(fp).load()
+    if not (isinstance(log, dict) and set(log) == {"train_loss", "val_loss"}
+            and all(isinstance(v, list) and all(isinstance(x, float) for x in v)
+                    for v in log.values())):
+        raise pickle.UnpicklingError("log.pkl is not a dict of two lists of floats")
+    return log
+
+
 class ETTorchTrainer:
     """Training and evaluation of one (baseline, dataset) experiment on one
     device, or on one rank of a data-parallel run.
@@ -764,9 +784,14 @@ class ETTorchTrainer:
     def load_model(self, filename: str = "model_best.msgpack"):
         """Load predictor weights, BN statistics and ET parameters from the
         checkpoint `checkpoint_dir/tag/dataset/filename`, written by either
-        package."""
+        package, and the loss log `log.pkl` beside it where there is one, so
+        that a later `fit()` judges its best epoch against the loaded one."""
         self.load_state(*params_from_jax(read_flax_msgpack(
             os.path.join(self.checkpoint_dir, filename))))
+        log_path = os.path.join(self.checkpoint_dir, "log.pkl")
+        if os.path.exists(log_path):
+            with open(log_path, "rb") as fp:
+                self.log = read_log(fp)
 
     def load_state(self, state: Dict[str, torch.Tensor], et: ETParams):
         """Load a predictor state dict that must fill every parameter and

@@ -65,12 +65,33 @@ def test_port_imports_no_jax():
     "eigentrajectory_tpu_torch.parallel",
     "eigentrajectory_tpu_torch.parallel.mesh",
     "eigentrajectory_tpu_torch.parallel.dryrun",
+    "eigentrajectory_tpu_torch.data.native_loader",
+    "eigentrajectory_tpu_torch.data.dataset",
+    "eigentrajectory_tpu_torch.metrics",
+    "eigentrajectory_tpu_torch.utils.misc",
+    "eigentrajectory_tpu_torch.analysis.curves",
+    "eigentrajectory_tpu_torch.analysis.descriptor_evaluation",
+    "eigentrajectory_tpu_torch.analysis.visualization",
 ])
 def test_training_modules_load_nothing_of_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'eigentrajectory_tpu'))\n"
             "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    assert out.strip() == "[]", out
+
+
+def test_port_imports_no_plotting_library():
+    """The card's machine has neither matplotlib nor sklearn: importing the
+    trainer, the predictor, the descriptor evaluation and the plots module
+    loads neither (the plots import them inside the functions that draw)."""
+    code = ("import sys, eigentrajectory_tpu_torch.analysis.visualization, "
+            "eigentrajectory_tpu_torch.analysis.descriptor_evaluation, "
+            "eigentrajectory_tpu_torch.train, eigentrajectory_tpu_torch.inference\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'sklearn')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300, check=True).stdout
     assert out.strip() == "[]", out

@@ -2,6 +2,7 @@
 of a checkpoint onto the port's modules and back, and a checkpoint written by
 the port read by the JAX trainer."""
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -159,6 +160,7 @@ def test_checkpoint_written_by_the_port_loads_into_the_jax_trainer(baseline, tmp
     assert jtr.log == {k: v[:n_logged] for k, v in tr.log.items()}
     fresh = ETTorchTrainer(ExpConfig(**kw), tag="port", datasets=splits, device="cpu")
     fresh.load_model()
+    assert fresh.log == jtr.log                      # the loss log, reloaded as JAX does
     want, got = jtr.test(eval_batch=8), fresh.test(eval_batch=8)
     for key in want:
         np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
@@ -167,3 +169,60 @@ def test_checkpoint_written_by_the_port_loads_into_the_jax_trainer(baseline, tmp
         var = np.asarray(jtr.batch_stats["st_gcn_0"]["tcn_bn1"]["var"])
         np.testing.assert_array_equal(var, tr.model.st_gcn_0.tcn_bn1.running_var.numpy())
         assert not np.allclose(var, 1.0)
+
+
+def _splits():
+    return tuple(make_synthetic_data(n_scenes=n, max_peds=5, seed=seed)
+                 for n, seed in ((10, 1), (6, 2), (8, 3)))
+
+
+def test_fit_after_load_model_keeps_a_better_loaded_checkpoint(tmp_path):
+    """After load_model() the reloaded log takes part in the best-val test:
+    the new run's epoch 0 is saved (as in the JAX trainer), and a later
+    epoch that beats epoch 0 but not the loaded log's best leaves
+    model_best.msgpack's bytes as they were."""
+    kw = dict(baseline="sgcn", batch_size=4, checkpoint_dir=str(tmp_path),
+              dataset="synthetic")
+    splits = _splits()
+    tr = ETTorchTrainer(ExpConfig(**kw), tag="port", datasets=splits, device="cpu")
+    tr.init_descriptor()
+    tr.fit(num_epochs=1, verbose=False)
+    log_path = os.path.join(tr.checkpoint_dir, "log.pkl")
+    # The loaded checkpoint's log claims a best epoch no new epoch beats.
+    with open(log_path, "wb") as f:
+        pickle.dump({"train_loss": [1.0], "val_loss": [1e-9]}, f)
+
+    fresh = ETTorchTrainer(ExpConfig(**kw), tag="port", datasets=splits, device="cpu")
+    fresh.load_model()
+    assert fresh.log == {"train_loss": [1.0], "val_loss": [1e-9]}
+    saved = []
+    save_model = fresh.save_model
+
+    def spy():
+        save_model()
+        with open(os.path.join(fresh.checkpoint_dir, "model_best.msgpack"), "rb") as f:
+            saved.append(f.read())
+
+    fresh.save_model = spy
+    fresh.fit(num_epochs=2, verbose=False)
+    val = fresh.log["val_loss"]
+    assert len(val) == 3 and val[2] < val[1]         # epoch 1 beats epoch 0 of this run
+    assert len(saved) == 1                           # epoch 0 only
+    with open(os.path.join(fresh.checkpoint_dir, "model_best.msgpack"), "rb") as f:
+        assert f.read() == saved[0]
+
+
+def test_log_is_read_without_admitting_any_class(tmp_path):
+    from eigentrajectory_tpu_torch.train.trainer import read_log
+
+    path = tmp_path / "log.pkl"
+    good = {"train_loss": [0.5, 0.25], "val_loss": [0.75, 0.5]}
+    path.write_bytes(pickle.dumps(good))
+    with open(path, "rb") as f:
+        assert read_log(f) == good
+    for bad in ({"train_loss": [np.float64(0.5)], "val_loss": []},   # a numpy scalar: a class
+                {"train_loss": [0.5]},
+                [0.5, 0.25]):
+        path.write_bytes(pickle.dumps(bad))
+        with open(path, "rb") as f, pytest.raises(pickle.UnpicklingError):
+            read_log(f)
