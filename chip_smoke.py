@@ -164,19 +164,33 @@ CUDA toolkit. It
    padding alone), ET-PECNet (univ checkpoint) one step on a packed batch
    split by scenes, ET-DMRGCN one step with DropEdge on, ET-GP-Graph-STGCNN
    one step at micro_batches 4 (th midway between two pair distances,
-   group_cnn's gradient NaN on both). Each step is held to world 1 running
-   the block in the chunks the ranks hold (micro_batches x 2, the same
-   arithmetic; the distance of both from the block in one piece is
-   printed): loss within 1e-5 relative, gradients within 5e-5 global
-   relative L2 and rtol 2e-3 / atol 1e-5, NaN where NaN, BN statistics
+   group_cnn's gradient NaN on both), ET-AgentFormer (zara2 checkpoint,
+   dropout on) one step on the first packed batch of the collated splits
+   at batch_size 128 (147 slots, 74 a rank: each rank's queries are its
+   slots' tokens, each attention gathers every rank's keys). Each
+   sequenced step is held to world 1 running the block in the chunks the
+   ranks hold (micro_batches x 2, the same arithmetic; the distance of
+   both from the block in one piece is printed), the collated ones to
+   world 1 on the whole batch: loss within 1e-5 relative, gradients within
+   5e-5 global relative L2 and rtol 2e-3 / atol 1e-5, NaN where NaN, BN statistics
    within 1e-6 of their scale (at least 1), DropEdge masks and the dropout
-   stream bitwise, every rank the same step. `fit(2)` train losses within
+   stream bitwise, every rank the same step. For ET-AgentFormer it prints
+   each rank's and world 1's six attention score shapes (query x key
+   tokens; a rank's rows must be T x 74 and add up to world 1's), the
+   step's peak device memory (max_memory_allocated) a rank and at world 1,
+   the `train.all_gather` spans of a profiled step (13 a rank: 7 gathers
+   forward, 6 all-reduces backward; none at world 1) with the profiled
+   step's wall and kernel device ms, one gather of the encoder's keys alone
+   (forward, and forward + backward) and the step's median ms at world 1
+   and 2. `fit(2)` train losses within
    2e-3 relative of world 1, and `fit(1)` + resume to 2 within 1e-5 of the
    straight run (not bitwise on the card); the step's median time at world
    1 and 2 and `test()`'s wall. Then `predict()` request (b) through
    `ETPredictor(mesh=)` over every visible card and over cuda:0 named
    twice, within 1e-5 of `mesh=None`, fused_reconstruct once a replica; and
-   the NCCL branch of the process-group helpers in a group of one;
+   the NCCL branch of the process-group helpers in a group of one (the
+   all-reduce, a broadcast, a barrier and `all_gather_rows` forward and
+   backward on the card);
 13. the native loader on the main path, the dormant modules and the
    analysis tools: writes seeded train/val/test split files in the ETH-UCY
    text format (about 300 scenes and 1,150 pedestrians each, the size of
@@ -2530,15 +2544,94 @@ def _dp_step(tr, batch, noted):
             "dropout_state": tr.dropout_generator.get_state()}
 
 
-def _dp_cases(world, tmp, th, split=1):
+def _dp_agentformer(world, tr, noted):
+    """Step 12's ET-AgentFormer case at `world` ranks (this process's rank):
+    one step with dropout on, on the first packed batch (a rank's range of
+    its slots), with the shapes of its six attention score tensors and the
+    step's peak device memory; the `train.all_gather` spans of a profiled
+    forward and backward (host ms each), its wall and its kernels' device
+    time (the ranges' device-side twins left out); one
+    gather of the encoder's keys alone, forward, then forward and backward
+    (world > 1); the median of DP_TIMED_STEPS steps."""
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from eigentrajectory_tpu_torch import parallel
+    from eigentrajectory_tpu_torch.data.batching import slot_width
+    from eigentrajectory_tpu_torch.models.agentformer import TF_MODEL_DIM, AgentAwareAttention
+
+    batches = list(itertools.islice(tr.train_batches(0), DP_TIMED_STEPS))
+    scores = []
+    hooks = [m.dropout.register_forward_hook(
+        lambda mod, inp, o: scores.append(tuple(inp[0].shape)))
+        for m in tr.model.modules() if isinstance(m, AgentAwareAttention)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = _dp_step(tr, batches[0], noted)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    out.update(scores=scores, slots=batches[0].obs.shape[0], held=held,
+               peak=torch.cuda.max_memory_allocated())
+
+    tr.model.train()
+    args, part = tr.step_args(batches[0])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.loss_and_grads(*args, part=part)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # Host spans only: with CUDA activity each also has a device-side twin.
+    out["spans"] = [e.cpu_time_total / 1e3 for e in prof.events()
+                    if e.name == "train.all_gather" and e.device_type == DeviceType.CPU]
+    out["profiled"] = (wall, sum(e.self_device_time_total for e in prof.key_averages()
+                                 if e.device_type == DeviceType.CUDA
+                                 and not e.is_user_annotation) / 1e3)
+    if world > 1:
+        m = slot_width(out["slots"], world)
+        x = torch.randn(1, (tr.cfg.k + 2) * m, 3 * TF_MODEL_DIM, device=tr.device,
+                        requires_grad=True)
+        times = {"forward": [], "forward + backward": []}
+        for _ in range(DP_TIMED_STEPS):
+            for label, grad in (("forward", False), ("forward + backward", True)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.set_grad_enabled(grad):
+                    y = parallel.all_gather_rows(x)
+                    if grad:
+                        y.sum().backward()
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        out["gather_ms"] = (tuple(x.shape), times)
+    times = []
+    for batch in batches:
+        args, part = tr.step_args(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(*args, part=part)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    tr.model.eval()
+    out["step_ms"] = times
+    return out
+
+
+def _dp_cases(world, tmp, th, split=1, agentformer=True):
     """Step 12's path at `world` ranks (this process's rank of them; world 1
     runs alone): steps of ET-STGCNN (hotel checkpoint, first and 21-scene
     last block), ET-PECNet (univ checkpoint, first packed batch), ET-DMRGCN
     (DropEdge on) and ET-GP-Graph-STGCNN (micro_batches 4, th given), the
     step time, test() of the 320 x 57 block, fit(2) and fit(1) + resume to
-    2. `split` multiplies the sequenced configurations' micro_batches (at
-    world 1, `split` = DP_WORLD runs each block in the chunks the ranks
-    hold). Returns the results on the host and the kernel launches."""
+    2; with `agentformer`, ET-AgentFormer's case (`_dp_agentformer`, zara2
+    checkpoint). `split` multiplies the sequenced configurations'
+    micro_batches (at world 1, `split` = DP_WORLD runs each block in the
+    chunks the ranks hold). Returns the results on the host and the kernel
+    launches."""
     import torch
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
@@ -2589,6 +2682,14 @@ def _dp_cases(world, tmp, th, split=1):
                             tag="parity", datasets=_collated_splits())
         pe.load_model()
         out["pecnet"] = _dp_step(pe, next(iter(pe.train_batches(0))), noted)
+
+        if agentformer:
+            af = ETTorchTrainer(load_config(os.path.join(REPO, "configs", AGENTFORMER_CFG),
+                                            checkpoint_dir=CKPT_DIR, mesh_data_axis=world),
+                                tag="parity", datasets=_collated_splits())
+            af.load_model()
+            out["agentformer"] = _dp_agentformer(world, af, noted)
+            del af
 
         dm = ETTorchTrainer(cfg("dmrgcn", "eth"), tag="dp", datasets=seq)
         dm._set_et(st.et)
@@ -2736,6 +2837,57 @@ def _dp_close(label, want, got, unsplit=None, rtol=2e-3, atol=1e-5):
     return err
 
 
+def _dp_agentformer_report(card, want, ranks):
+    """Checks and prints step 12's ET-AgentFormer split: each rank's six
+    attentions score T * ceil(P / DP_WORLD) query rows against all T * P
+    keys (fewer rows than world 1's, the rows inside the row adding up to
+    world 1's); 13 `train.all_gather` spans a step on every rank (7 gathers
+    forward: the inputs' once, then each attention's keys; 6 all-reduces
+    backward), none at world 1; then the peak memory, the gather alone and
+    the step times."""
+    from eigentrajectory_tpu_torch.data.batching import slot_width
+
+    p = want["slots"]
+    m = slot_width(p, DP_WORLD)
+    if len(want["scores"]) != 6:
+        raise AssertionError(f"ET-AgentFormer: {len(want['scores'])} attentions, expected 6")
+    in_row = [0] * 6
+    for rank, res in enumerate(ranks):
+        for i, (mine, whole) in enumerate(zip(res["scores"], want["scores"])):
+            t_len = whole[2] // p
+            if mine[2] != t_len * m or mine[2] >= whole[2] or mine[3] != whole[3] or \
+                    mine[:2] != whole[:2]:
+                raise AssertionError(f"ET-AgentFormer rank {rank} attention {i}: scores "
+                                     f"{mine}, world 1 {whole}")
+            in_row[i] += t_len * min(m, max(0, p - rank * m))
+    if in_row != [s[2] for s in want["scores"]]:
+        raise AssertionError(f"ET-AgentFormer: the ranks' query rows {in_row} are not world 1's")
+    if want["spans"] or any(len(r["spans"]) != 13 for r in ranks):
+        raise AssertionError(f"ET-AgentFormer train.all_gather spans: world 1 "
+                             f"{len(want['spans'])}, ranks {[len(r['spans']) for r in ranks]}")
+    gib = 2 ** 30
+    print(f"  ET-AgentFormer attention rows (query x key tokens of the six score tensors, "
+          f"P = {p} slots, {m} a rank): world 1 {[s[2:] for s in want['scores']]}; "
+          + "; ".join(f"rank {r} {[s[2:] for s in res['scores']]}" for r, res in enumerate(ranks)),
+          flush=True)
+    print(f"[{card}] step 12 ET-AgentFormer, world {DP_WORLD}: step peak device memory "
+          + ", ".join(f"rank {r} {res['peak'] / gib:.3f} GiB ({res['held'] / gib:.3f} held "
+                      f"before)" for r, res in enumerate(ranks))
+          + f"; world 1 {want['peak'] / gib:.3f} GiB ({want['held'] / gib:.3f} held before) "
+          f"(max_memory_allocated); train.all_gather spans a step {len(ranks[0]['spans'])} "
+          f"(rank 0 host ms {[round(x, 3) for x in ranks[0]['spans']]}, sum "
+          f"{sum(ranks[0]['spans']):.3f}); profiled forward + backward wall / device ms: "
+          + ", ".join(f"rank {r} {res['profiled'][0]:.3f} / {res['profiled'][1]:.3f}"
+                      for r, res in enumerate(ranks))
+          + f", world 1 {want['profiled'][0]:.3f} / {want['profiled'][1]:.3f}; one gather of "
+          f"{ranks[0]['gather_ms'][0]} alone, median "
+          + ", ".join(f"{label} {_median(t):.3f} ms"
+                      for label, t in ranks[0]["gather_ms"][1].items())
+          + f"; step median "
+          f"{_median(ranks[0]['step_ms']):.3f} ms (world 1 {_median(want['step_ms']):.3f} ms; "
+          f"host clock, synchronized, {DP_TIMED_STEPS} steps)", flush=True)
+
+
 def _data_parallel_phase(card, recon, seq_data):
     """Step 12: DP_WORLD ranks against the single card, and the predictor
     over a mesh. Returns the kernels' launches of the sharded path (every
@@ -2781,7 +2933,7 @@ def _data_parallel_phase(card, recon, seq_data):
         want = _dp_cases(1, os.path.join(tmp, "w1"), th, split=DP_WORLD)
         t1 = time.perf_counter() - t0
         os.makedirs(os.path.join(tmp, "whole"))
-        whole_block = _dp_cases(1, os.path.join(tmp, "whole"), th)
+        whole_block = _dp_cases(1, os.path.join(tmp, "whole"), th, agentformer=False)
         t0 = time.perf_counter()
         init = f"file://{os.path.join(tmp, 'init')}"
         mp.spawn(_dp_rank, args=(DP_WORLD, init, share, tmp, th), nprocs=DP_WORLD)
@@ -2796,17 +2948,21 @@ def _data_parallel_phase(card, recon, seq_data):
     for key, label in (("stgcnn_first", "ET-STGCNN step, first 128 x 57 block"),
                        ("stgcnn_last", "ET-STGCNN step, last block (21 real scenes)"),
                        ("pecnet", "ET-PECNet step, first packed batch (scenes split)"),
+                       ("agentformer", "ET-AgentFormer step, first packed batch (slots split, "
+                                       "attention across the ranks), dropout on"),
                        ("dmrgcn", "ET-DMRGCN step, DropEdge on"),
                        ("gpgraph", "ET-GP-Graph-STGCNN step, micro_batches 4")):
         # The ranks' DropEdge masks, row after row, are the whole block's.
         keeps = [torch.cat(rows) for rows in zip(*(r[key]["keeps"] for r in ranks))]
         errs[key] = _dp_close(label, want[key], {**got[key], "keeps": keeps},
-                              unsplit=None if key == "pecnet" else whole_block[key])
+                              unsplit=None if key in ("pecnet", "agentformer") else
+                              whole_block[key])
         for other in ranks[1:]:      # the all-reduce leaves every rank the same step
             if other[key]["loss"] != got[key]["loss"] or not all(
                     torch.allclose(other[key]["grads"][n], g, rtol=0, atol=0, equal_nan=True)
                     for n, g in got[key]["grads"].items()):
                 raise AssertionError(f"{key}: the ranks hold different steps")
+    _dp_agentformer_report(card, want["agentformer"], [r["agentformer"] for r in ranks])
     test_err = max(abs(got["test"][k] - v) for k, v in want["test"].items())
     if any(abs(got["test"][k] - v) > 1e-6 + 1e-5 * abs(v) for k, v in want["test"].items()):
         raise AssertionError(f"test(): world {DP_WORLD} {got['test']} vs world 1 {want['test']}")
@@ -2865,10 +3021,19 @@ def _data_parallel_phase(card, recon, seq_data):
             if group.backend != "nccl" or not torch.equal(buf.cpu(), torch.arange(5.0)) or \
                     parallel.broadcast_object({"x": 1}) != {"x": 1}:
                 raise AssertionError(f"NCCL group of one: {group}, {buf}")
+            # The gather's NCCL route (on the card, no host copy), forward and backward.
+            x = torch.randn(1, 3 * 5, 4, device="cuda", requires_grad=True)
+            w = torch.randn(1, 1, 3 * 5, 4, device="cuda")
+            stacked = parallel.all_gather_rows(x)
+            (stacked * w).sum().backward()
+            row = parallel.SlotShard(0, 1, 5).gather(x)
+            if stacked.device != x.device or not torch.equal(stacked, x[None]) or \
+                    not torch.equal(x.grad, w[0]) or not torch.equal(row, x):
+                raise AssertionError("NCCL group of one: all_gather_rows is not the identity")
         finally:
             parallel.destroy()
-    print(f"  NCCL group of one on {group.device}: all-reduce, broadcast and barrier ran",
-          flush=True)
+    print(f"  NCCL group of one on {group.device}: all-reduce, broadcast, barrier and "
+          f"all_gather_rows (forward and backward, the identity at world 1) ran", flush=True)
     print(f"[{card}] step 12 ran {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
 

@@ -15,8 +15,9 @@ the device.
 A data-parallel run plans its shards here, on the host: every rank holds
 the whole split, draws the same batches and takes its part of each
 (`shard_rows`: a contiguous range of a block's scene rows; `shard_scenes`:
-whole scenes of a packed batch, repacked into a row of their own), so no
-data is exchanged.
+whole scenes of a packed batch, repacked into a row of their own;
+`shard_slots`: a contiguous range of a packed batch's slots, for a
+predictor whose training forward spans the row), so no data is exchanged.
 """
 from __future__ import annotations
 
@@ -261,4 +262,28 @@ def shard_scenes(batch: CollatedBatch, rank: int, world: int, width: int) -> Col
     for dst, src in ((obs, batch.obs), (pred, batch.pred), (valid, batch.ped_valid),
                      (scene_ids, batch.scene_ids), (non_linear, batch.non_linear)):
         dst[:len(own)] = src[own]
+    return CollatedBatch(obs, pred, valid, scene_ids, non_linear)
+
+
+def slot_width(p_max: int, world: int) -> int:
+    """Slots of a rank's part in `shard_slots`: ceil(p_max / world)."""
+    return -(-p_max // world)
+
+
+def shard_slots(batch: CollatedBatch, rank: int, world: int) -> CollatedBatch:
+    """Rank `rank`'s contiguous range of a packed batch's P slots,
+    [rank * m, (rank + 1) * m) with m = `slot_width(P, world)`, the last
+    rank's padded past P: JAX's even split of the flat pedestrian axis. Each
+    slot keeps its scene id; scenes may straddle two ranks."""
+    p = batch.obs.shape[0]
+    m = slot_width(p, world)
+    lo, hi = min(rank * m, p), min((rank + 1) * m, p)
+    obs = np.zeros((m,) + batch.obs.shape[1:], np.float32)
+    pred = np.zeros((m,) + batch.pred.shape[1:], np.float32)
+    valid = np.zeros((m,), bool)
+    scene_ids = np.full((m,), -1, np.int32)
+    non_linear = np.zeros((m,), np.float32)
+    for dst, src in ((obs, batch.obs), (pred, batch.pred), (valid, batch.ped_valid),
+                     (scene_ids, batch.scene_ids), (non_linear, batch.non_linear)):
+        dst[:hi - lo] = src[lo:hi]
     return CollatedBatch(obs, pred, valid, scene_ids, non_linear)

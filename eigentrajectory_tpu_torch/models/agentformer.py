@@ -21,6 +21,15 @@ key slots, -inf between agents farther apart than `conn_dist` (off by
 default), -1e9 across scenes when `scene_ids` is given (the packed eval
 only: training attends across the whole packed batch, as the reference's
 collated training does) and the block-causal -inf of the decoder.
+
+A data-parallel training step splits the packed row's slots over the ranks
+(`parallel.SlotShard`, `ROW_SPLIT = "slots"`): a rank's queries are its
+slots' tokens, and each attention gathers every rank's projected keys,
+values and same-agent keys (one (B, T * width, 3E) tensor) into the single
+process's token order, so no projection is repeated and the rank's score
+tensors hold T * width rows. The masks are the single process's rows of
+the rank's queries, and each dropout draws the single process's mask and
+takes the rank's rows.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import SlotShard
 from .common import Dropout, zero_invalid
 
 TF_MODEL_DIM = 256
@@ -92,8 +102,11 @@ class AgentAwareAttention(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, same_agent: torch.Tensor,
-                attn_bias: torch.Tensor) -> torch.Tensor:
-        # query (B, L, E), key (B, S, E), same_agent (L, S) bool, attn_bias (B, L, S)
+                attn_bias: torch.Tensor, shard: Optional[SlotShard] = None,
+                rows: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
+        # query (B, L, E), key (B, S, E), same_agent (L, S) bool, attn_bias (B, L, S).
+        # Under `shard` the key holds this rank's tokens, S is every rank's,
+        # and `rows` places the queries among the single process's (Dropout).
         e, h = self.embed_dim, self.num_heads
         hd = e // h
         scaling = hd ** -0.5
@@ -107,6 +120,8 @@ class AgentAwareAttention(nn.Module):
         else:
             q, k, v = self.in_proj(query).chunk(3, dim=-1)
             q_self, k_self = self.in_proj_self(query).chunk(2, dim=-1)
+        if shard is not None:
+            k, v, k_self = shard.gather(torch.cat([k, v, k_self], dim=-1)).split(e, dim=-1)
         q, q_self = q * scaling, q_self * scaling
 
         def heads(x):                          # (B, L, E) -> (B, H, L, hd)
@@ -116,7 +131,7 @@ class AgentAwareAttention(nn.Module):
         own = heads(q_self) @ heads(k_self).transpose(-1, -2)
         m = same_agent.to(inter.dtype)
         w_att = inter * (1 - m) + own * m + attn_bias[:, None]
-        w_att = self.dropout(torch.softmax(w_att, dim=-1))
+        w_att = self.dropout(torch.softmax(w_att, dim=-1), rows, dim=2)
         out = (w_att @ heads(v)).transpose(1, 2).reshape(query.shape[0], -1, e)
         return self.out_proj(out)
 
@@ -134,10 +149,11 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
         self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(3))
 
-    def forward(self, src, same_agent, attn_bias):
-        src = self.norm1(src + self.drops[0](self.self_attn(src, src, same_agent, attn_bias)))
-        h = self.linear2(self.drops[1](torch.relu(self.linear1(src))))
-        return self.norm2(src + self.drops[2](h))
+    def forward(self, src, same_agent, attn_bias, shard=None, rows=None):
+        att = self.self_attn(src, src, same_agent, attn_bias, shard, rows)
+        src = self.norm1(src + self.drops[0](att, rows))
+        h = self.linear2(self.drops[1](torch.relu(self.linear1(src)), rows))
+        return self.norm2(src + self.drops[2](h, rows))
 
 
 class DecoderLayer(nn.Module):
@@ -155,11 +171,13 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
         self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(4))
 
-    def forward(self, tgt, memory, sa_tgt, bias_tgt, sa_mem, bias_mem):
-        tgt = self.norm1(tgt + self.drops[0](self.self_attn(tgt, tgt, sa_tgt, bias_tgt)))
-        tgt = self.norm2(tgt + self.drops[1](self.multihead_attn(tgt, memory, sa_mem, bias_mem)))
-        h = self.linear2(self.drops[2](torch.relu(self.linear1(tgt))))
-        return self.norm3(tgt + self.drops[3](h))
+    def forward(self, tgt, memory, sa_tgt, bias_tgt, sa_mem, bias_mem, shard=None, rows=None):
+        att = self.self_attn(tgt, tgt, sa_tgt, bias_tgt, shard, rows)
+        tgt = self.norm1(tgt + self.drops[0](att, rows))
+        att = self.multihead_attn(tgt, memory, sa_mem, bias_mem, shard, rows)
+        tgt = self.norm2(tgt + self.drops[1](att, rows))
+        h = self.linear2(self.drops[2](torch.relu(self.linear1(tgt)), rows))
+        return self.norm3(tgt + self.drops[3](h, rows))
 
 
 class PosEncodeConcat(nn.Module):
@@ -185,16 +203,19 @@ class PosEncodeConcat(nn.Module):
             self._tables[key] = torch.from_numpy(pe).to(device, dtype)
         return self._tables[key]
 
-    def forward(self, x: torch.Tensor, t_len: int, n_agent: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t_len: int, n_agent: int,
+                rows: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
         pe = self.table(t_len, n_agent, x.device, x.dtype)
         h = torch.cat([x, pe.expand(x.shape[0], -1, -1)], dim=-1)
-        return self.dropout(self.fc(h))
+        return self.dropout(self.fc(h), rows)
 
 
-def _same_agent(lt: int, ls: int, n: int, device) -> torch.Tensor:
-    """(lt, ls) bool: tokens of the same agent."""
-    return (torch.arange(lt, device=device)[:, None] % n
-            == torch.arange(ls, device=device)[None, :] % n)
+def _same_agent(q_slots: torch.Tensor, tq: int, n_keys: int, tk: int) -> torch.Tensor:
+    """(tq * nq, tk * n_keys) bool: query tokens (the slot of each of the
+    nq queries, `q_slots`, at each of tq steps) against key tokens (n_keys
+    slots at tk steps) of the same agent."""
+    keys = torch.arange(n_keys, device=q_slots.device)
+    return q_slots.repeat(tq)[:, None] == keys.repeat(tk)[None, :]
 
 
 class AgentFormerLight(nn.Module):
@@ -220,50 +241,68 @@ class AgentFormerLight(nn.Module):
         self.out_fc_bias = nn.Parameter(torch.zeros(forecast_dim))
 
     def forward(self, pre_motion: torch.Tensor, valid: torch.Tensor,
-                scene_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        # pre_motion (B, T, N, 1), valid (B, N), scene_ids (B, N) or None
+                scene_ids: Optional[torch.Tensor] = None,
+                shard: Optional[SlotShard] = None) -> torch.Tensor:
+        # pre_motion (B, T, N, 1), valid (B, N), scene_ids (B, N) or None;
+        # under `shard` N is this rank's slots (shard.width) of a row of
+        # shard.slots, and the queries are this rank's tokens alone.
         b, t, n, _ = pre_motion.shape
         tf, dev, dtype = self.future_frames, pre_motion.device, pre_motion.dtype
         zero = torch.zeros((), device=dev, dtype=dtype)
-        key_bias = torch.where(valid, zero, torch.full_like(zero, -1e9))        # (B, N)
+        if shard is None:
+            q_slots, rows_ctx = torch.arange(n, device=dev), None
+            key_valid, cur = valid, pre_motion[:, -1]                           # (B, P), (B, P, 1)
+        else:
+            if scene_ids is not None:
+                raise ValueError("a slot-split forward is training's: it takes no scene ids")
+            q_slots = shard.own_slots(dev)
+            rows_ctx = (shard.token_rows(t, dev), t * shard.slots)
+            # Every slot's validity and last position: the masks of world-1 keys.
+            every = shard.gather(torch.cat([valid[..., None].to(dtype), pre_motion[:, -1]], -1))
+            key_valid, cur = every[..., 0] > 0.5, every[..., 1:]
+        p = key_valid.shape[1]
+        key_bias = torch.where(key_valid, zero, torch.full_like(zero, -1e9))    # (B, P)
         if self.conn_dist < 1000.0:
-            cur = pre_motion[:, -1]                                             # (B, N, 1)
             dist = torch.linalg.vector_norm(cur[:, :, None] - cur[:, None], dim=-1)
             agent_mask = torch.where(dist > self.conn_dist / self.traj_scale,
-                                     torch.full_like(zero, -math.inf), zero)   # (B, N, N)
+                                     torch.full_like(zero, -math.inf), zero)   # (B, P, P)
         else:
-            agent_mask = torch.zeros((b, n, n), device=dev, dtype=dtype)
+            agent_mask = torch.zeros((b, p, p), device=dev, dtype=dtype)
         if scene_ids is not None:
             cross_scene = scene_ids[:, :, None] != scene_ids[:, None, :]
             agent_mask = agent_mask + torch.where(cross_scene, torch.full_like(zero, -1e9), zero)
+        if shard is not None:
+            agent_mask = agent_mask[:, q_slots]                                 # (B, n, P)
 
-        def pad_bias(lt, ls):
-            # The (N, N) agent mask tiled over the time blocks, and the
-            # padded key slots masked: (B, lt, ls).
-            return agent_mask.repeat(1, lt // n, ls // n) + key_bias.repeat(1, ls // n)[:, None]
+        def pad_bias(tq, tk):
+            # The (n, P) agent mask tiled over tq query and tk key steps, and
+            # the padded key slots masked: (B, tq * n, tk * P).
+            return agent_mask.repeat(1, tq, tk) + key_bias.repeat(1, tk)[:, None]
 
         # --- context encoder ---
         x = self.ctx_input_fc(pre_motion.reshape(b, t * n, 1))
-        x = self.ctx_pos_encoder(x, t, n)
-        sa, bias = _same_agent(t * n, t * n, n, dev), pad_bias(t * n, t * n)
+        x = self.ctx_pos_encoder(x, t, n, rows_ctx)
+        sa, bias = _same_agent(q_slots, t, p, t), pad_bias(t, t)
         for i in range(NLAYER_ENC):
-            x = getattr(self, f"enc_layer_{i}")(x, sa, bias)
-        context = x                                                             # (B, T*N, E)
+            x = getattr(self, f"enc_layer_{i}")(x, sa, bias, shard, rows_ctx)
+        context = x                                                             # (B, T*n, E)
 
         # --- future decoder: one causal pass over tf copies of the last token ---
-        dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                         # (B, tf*N, 1)
-        y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n)
-        sa_tgt = _same_agent(tf * n, tf * n, n, dev)
-        t_idx = torch.arange(tf * n, device=dev) // n
-        causal = torch.where(t_idx[:, None] >= t_idx[None, :], zero,
+        rows_dec = None if shard is None else (shard.token_rows(tf, dev), tf * p)
+        dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                         # (B, tf*n, 1)
+        y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n, rows_dec)
+        sa_tgt = _same_agent(q_slots, tf, p, tf)
+        causal = torch.where(torch.arange(tf * n, device=dev)[:, None] // n
+                             >= torch.arange(tf * p, device=dev)[None, :] // p, zero,
                              torch.full_like(zero, -math.inf))
-        bias_tgt = causal + pad_bias(tf * n, tf * n)
-        sa_mem, bias_mem = _same_agent(tf * n, t * n, n, dev), pad_bias(tf * n, t * n)
+        bias_tgt = causal + pad_bias(tf, tf)
+        sa_mem, bias_mem = _same_agent(q_slots, tf, p, t), pad_bias(tf, t)
         for i in range(NLAYER_DEC):
-            y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem, bias_mem)
+            y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem, bias_mem,
+                                                shard, rows_dec)
 
-        seq_out = y @ self.out_fc_kernel + self.out_fc_bias                      # (B, tf*N, s)
-        return seq_out.reshape(b, tf, n, self.forecast_dim).transpose(1, 2)      # (B, N, tf, s)
+        seq_out = y @ self.out_fc_kernel + self.out_fc_bias                      # (B, tf*n, s)
+        return seq_out.reshape(b, tf, n, self.forecast_dim).transpose(1, 2)      # (B, n, tf, s)
 
 
 def make_model(cfg) -> nn.Module:
@@ -278,11 +317,14 @@ def prepare(c_obs: torch.Tensor, obs_ori: torch.Tensor, aux: Dict) -> Tuple:
     """Pre-hook: c_obs (B, k, N), obs_ori (B, 2, N) -> (pre_motion
     (B, k + 2, N, 1) = [C_obs; ori] zeroed at the invalid slots and
     detached, valid (B, N)), and the scene ids (B, N) under
-    `isolate_scenes` (the packed eval)."""
+    `isolate_scenes` (the packed eval), or the rank's `slot_shard` (a
+    data-parallel training step; N is then its slots)."""
     valid = aux["ped_valid"]
     obs = zero_invalid(torch.cat([c_obs, obs_ori], dim=1), valid, 2).detach()
     if aux.get("isolate_scenes", False):
         return (obs[..., None], valid, aux["scene_ids"])
+    if aux.get("slot_shard") is not None:
+        return (obs[..., None], valid, None, aux["slot_shard"])
     return (obs[..., None], valid)
 
 
@@ -293,8 +335,9 @@ def finalize(output_data: torch.Tensor, aux: Dict) -> torch.Tensor:
 
 BATCHING = "collated"
 # Training attends across every scene of the packed row: a data-parallel
-# step cannot split a row's scenes over ranks (each rank runs the whole row).
-ROW_COUPLED = True
+# step splits the row's slots over the ranks (`data.batching.shard_slots`)
+# and the attention gathers every rank's keys, not whole scenes a rank.
+ROW_SPLIT = "slots"
 # Packed-eval cap: every token of a packed row attends to every other, so
 # the score tensors grow with the square of the slots.
 EVAL_PED_CAP = 128

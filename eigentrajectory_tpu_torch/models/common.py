@@ -106,14 +106,22 @@ class Dropout(nn.Module):
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Tuple[torch.Tensor, int]] = None,
+                dim: int = 1) -> torch.Tensor:
+        """`rows` = (index, length): `x` holds the rows `index` along `dim` of
+        a tensor of `length` rows there (a data-parallel rank's share of a
+        token axis). The whole tensor's mask is drawn and `x`'s rows taken,
+        so the draws and the generator's state are the single process's."""
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a generator: "
                                "set_dropout_generator(model, generator)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+        shape = x.shape if rows is None else x.shape[:dim] + (rows[1],) + x.shape[dim + 1:]
+        keep = torch.rand(shape, generator=self.generator, device=x.device,
                           dtype=x.dtype) >= self.rate
+        if rows is not None:
+            keep = keep.index_select(dim, rows[0])
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -24,6 +24,9 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
+
+from ..data.batching import slot_width
 
 
 def make_mesh(n_data: Optional[int] = None,
@@ -131,16 +134,103 @@ def destroy():
     _RANK = None
 
 
+def _through_host(x: torch.Tensor) -> bool:
+    """Gloo takes host tensors only: a card tensor goes through a copy."""
+    return _RANK.backend == "gloo" and x.device.type == "cuda"
+
+
 def all_reduce_sum_(buf: torch.Tensor) -> torch.Tensor:
     """Sum `buf` over the ranks in place (one collective). Under gloo a card
     tensor goes through a host copy."""
-    if _RANK.backend == "gloo" and buf.device.type == "cuda":
+    if _through_host(buf):
         host = buf.cpu()
         dist.all_reduce(host)
         buf.copy_(host)
     else:
         dist.all_reduce(buf)
     return buf
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: every rank's (B, L, C) tensor stacked, (world, B, L, C).
+    Backward: the sum over the ranks of the gradient of this rank's block.
+    One all-gather forward and one all-reduce backward, the same
+    collectives under gloo (a card tensor through a host copy) and NCCL."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with record_function("train.all_gather"):
+            src = (x.cpu() if _through_host(x) else x).detach().contiguous()
+            parts = [torch.empty_like(src) for _ in range(_RANK.world)]
+            dist.all_gather(parts, src)
+            return torch.stack(parts).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with record_function("train.all_gather"):
+            # A copy: the reduction is in place, and `grad` is autograd's.
+            buf = (grad.cpu().contiguous() if _through_host(grad) else
+                   grad.clone(memory_format=torch.contiguous_format))
+            dist.all_reduce(buf)
+            return buf[_RANK.rank].to(grad.device)
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, C) on every rank (L equal on all) -> (world, B, L, C), rank r's
+    tensor at [r]; differentiable: each rank's gradient is the sum over the
+    ranks of the gradient that reaches its block. Every rank must call it,
+    in the same order."""
+    if current() is None:
+        raise RuntimeError("all_gather_rows needs a process group (init_process_group)")
+    return _GatherRows.apply(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotShard:
+    """A rank's share of a packed row of `slots` pedestrian slots in a
+    data-parallel training step: the contiguous slots [lo, lo + width),
+    width = ceil(slots / world), the last rank's padded past the row's end
+    (JAX's even split of the flat pedestrian axis).
+
+    For a forward over time-major tokens (token t * slots + a is slot a at
+    step t), a rank holds its slots' tokens t * width + i and reads every
+    rank's through `gather`, in the single process's order.
+    """
+
+    rank: int
+    world: int
+    slots: int
+
+    @property
+    def width(self) -> int:
+        return slot_width(self.slots, self.world)
+
+    @property
+    def lo(self) -> int:
+        return self.rank * self.width
+
+    def own_slots(self, device) -> torch.Tensor:
+        """(width,) int64: the row's slot of each of this rank's slots, the
+        padding past the row's end at its last slot (whose masks and draws
+        it then takes: finite, and dropped with the padding's outputs)."""
+        return torch.clamp_max(torch.arange(self.lo, self.lo + self.width, device=device),
+                               self.slots - 1)
+
+    def token_rows(self, t_len: int, device) -> torch.Tensor:
+        """(t_len * width,) int64: the single process's token of each of this
+        rank's `t_len` steps' tokens."""
+        steps = torch.arange(t_len, device=device)[:, None] * self.slots
+        return (steps + self.own_slots(device)[None, :]).reshape(-1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T * width, C), this rank's tokens -> (B, T * slots, C), every
+        rank's in the single process's order (the padding past the row's
+        end dropped); differentiable (`all_gather_rows`)."""
+        b, length, c = x.shape
+        t_len = length // self.width
+        every = all_gather_rows(x).reshape(self.world, b, t_len, self.width, c)
+        every = every.permute(1, 2, 0, 3, 4).reshape(b, t_len, self.world * self.width, c)
+        return every[:, :, :self.slots].reshape(b, t_len * self.slots, c)
 
 
 def broadcast_object(obj, src: int = 0):

@@ -51,17 +51,23 @@ same batches and takes its part on the host (`data.batching`):
 * collated: whole scenes of each packed batch, in a row of their own,
   centred on the whole batch's origin (`etspace.facade.row_center`) and
   weighted by their share of its valid pedestrians. A predictor whose
-  training forward couples the scenes of a row (`ROW_COUPLED`:
-  ET-AgentFormer's attention spans the packed batch) runs the whole batch
-  on every rank, each weighted 1 / n: exact, not faster.
+  training forward couples the scenes of a row (`ROW_SPLIT = "slots"`:
+  ET-AgentFormer's attention spans the packed batch) takes a contiguous
+  range of the row's slots instead (`data.batching.shard_slots`, ceil(P /
+  n) a rank), centred and weighted the same way, and its forward gets the
+  rank's `parallel.SlotShard` in `aux`: its queries stay local and each
+  attention gathers every rank's keys (`parallel.all_gather_rows`, whose
+  backward sums each rank's part of the gradient over the ranks).
 Each rank's gradients, its BN statistics (updated from the pre-step ones,
 weighted by its valid scenes, as the micro-batches are) and its loss go
 through one all-reduce (`train.all_reduce`) before the optimizer, so NaN
 entries are zeroed, the norm clipped and AdamW applied on the global
 gradient. DropEdge and Dropout draw what the single process draws: every
 rank draws the whole block's masks from the same stream and takes its
-rows (Dropout runs only in the row-coupled ET-AgentFormer, whose ranks all
-run the whole batch). `valid()` and `test()` split the blocks' rows
+rows (ET-AgentFormer's dropouts draw the whole row's token masks and take
+the rank's tokens). Only that split training forward makes collectives in
+the model: `valid()`, `test()` and a run of one rank go through whole
+rows. `valid()` and `test()` split the blocks' rows
 (sequenced) or deal the packed batches to the ranks (collated) and sum
 (value, count) over the ranks. Rank 0 fits the descriptor and broadcasts
 it, and writes the checkpoints and the log; every rank loads.
@@ -83,7 +89,7 @@ from .. import metrics as M
 from .. import parallel
 from ..config import ExpConfig, resolve_dataset_dir
 from ..data.batching import (CollatedBatcher, SceneBatcher, max_collated_peds, scene_gather,
-                             shard_rows, shard_scenes, shard_width)
+                             shard_rows, shard_scenes, shard_slots, shard_width)
 from ..data.dataset import augment_trajectory, load_trajectory_data
 from ..etspace.descriptor import ETBasis
 from ..etspace.facade import ETParams, calculate_parameters, et_forward, row_center
@@ -97,10 +103,13 @@ from ..utils.profiling import StepTimer, trace_annotation
 
 class StepPart(NamedTuple):
     """A rank's part of a collated step besides its tensors: its weight in
-    the step loss and the whole packed row's centre (None: its own row's)."""
+    the step loss, the whole packed row's centre (None: its own row's), and
+    the row's slots where the rank holds a range of them (`shard_slots`;
+    None: whole scenes)."""
 
     weight: float
     center: Optional[torch.Tensor] = None
+    slots: Optional[int] = None
 
 
 class _PlainUnpickler(pickle.Unpickler):
@@ -181,11 +190,11 @@ class ETTorchTrainer:
             # Slots of a packed train or val batch.
             self.p_max = max(max_collated_peds(self.data_train, cfg.batch_size),
                              max_collated_peds(self.data_val, cfg.batch_size), self.n_max)
-            # Slots of a rank's row of whole scenes (the whole batch where
-            # the predictor couples a row's scenes in training).
-            self.row_coupled = getattr(self.baseline, "ROW_COUPLED", False)
-            self.p_shard = (self.p_max if self.row_coupled else
-                            shard_width(self.p_max, self.n_max, self.world))
+            # A rank takes whole scenes, in a row of p_shard slots, or a range
+            # of the row's slots where the predictor couples a row's scenes
+            # in training.
+            self.split_slots = getattr(self.baseline, "ROW_SPLIT", "scenes") == "slots"
+            self.p_shard = shard_width(self.p_max, self.n_max, self.world)
         elif cfg.batch_size % self.world:
             raise ValueError(f"the sequenced regime splits a block's scenes over the ranks: "
                              f"batch_size {cfg.batch_size} is not divisible by "
@@ -251,13 +260,15 @@ class ETTorchTrainer:
             return self._to_device(batch), None
         if not self.collated:
             return self._to_device(shard_rows(batch, self.rank, self.world)), None
-        if self.row_coupled:
-            return self._to_device(batch), StepPart(1.0 / self.world)
-        own = shard_scenes(batch, self.rank, self.world, self.p_shard)
+        if self.split_slots:
+            own = shard_slots(batch, self.rank, self.world)
+        else:
+            own = shard_scenes(batch, self.rank, self.world, self.p_shard)
         obs = torch.from_numpy(batch.obs[None]).to(self.device, self.dtype)
         center = row_center(obs, torch.from_numpy(batch.ped_valid[None]).to(self.device))
         share = int(own.ped_valid.sum()) / max(int(batch.ped_valid.sum()), 1)
-        return self._to_device(own), StepPart(share, center)
+        return self._to_device(own), StepPart(share, center,
+                                              batch.obs.shape[0] if self.split_slots else None)
 
     def make_aux(self, valid: torch.Tensor, scene_info: torch.Tensor) -> Dict:
         """The predictor's extra inputs for a (B, N) block with validity
@@ -310,11 +321,14 @@ class ETTorchTrainer:
         ids (1, P)): the losses of the one packed row, a masked mean over its
         valid pedestrians, non-finite -> 0; a rank's `part` of a packed batch
         is weighted by its share and left as it is (the all-reduce zeroes a
-        step whose summed loss is not finite).
+        step whose summed loss is not finite); a part that holds a range of
+        the row's slots hands the predictor its `parallel.SlotShard`.
         """
         aux = self.make_aux(valid, scene_info)
         if part is not None and part.center is not None:
             aux["row_center"] = part.center
+        if part is not None and part.slots is not None:
+            aux["slot_shard"] = parallel.SlotShard(self.rank, self.world, part.slots)
         out = et_forward(self.et, self._predictor_fn, obs, valid, self.cfg.static_dist,
                          pred_traj=pred, aux=aux)
         losses = (out["loss_eigentraj"] + out["loss_euclidean_ade"]
