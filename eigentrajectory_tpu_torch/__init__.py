@@ -34,7 +34,8 @@ ET-AgentFormer, collated):
   analysis        curve bases, the descriptor evaluation
                   (`python -m eigentrajectory_tpu_torch.analysis.descriptor_evaluation`)
                   and the plots
-  utils           step timer, torch.profiler helpers, print_arguments
+  utils           step timer, gated profiler spans and trace counters,
+                  print_arguments
   trainval        the CLI (`python -m eigentrajectory_tpu_torch.trainval`)
 
 Nothing here imports JAX.

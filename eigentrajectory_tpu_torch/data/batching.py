@@ -26,6 +26,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from .dataset import TrajectoryData
 
 
@@ -111,7 +112,9 @@ class SceneBatcher:
             chunk = order[i:i + bs]
             if len(chunk) < bs and self.drop_last:
                 return
-            yield pad_scenes(self.data, chunk.tolist(), self.n_max, bs)
+            with span("data.pad"):
+                batch = pad_scenes(self.data, chunk.tolist(), self.n_max, bs)
+            yield batch
 
 
 def _collate_groups(
@@ -172,21 +175,22 @@ class CollatedBatcher:
         obs_len = self.data.obs_traj.shape[1]
         pred_len = self.data.pred_traj.shape[1]
         for group in _collate_groups(self.data, order, self.batch_size, self.drop_last):
-            obs = np.zeros((self.p_max, obs_len, 2), np.float32)
-            pred = np.zeros((self.p_max, pred_len, 2), np.float32)
-            valid = np.zeros((self.p_max,), bool)
-            scene_ids = np.full((self.p_max,), -1, np.int32)
-            non_linear = np.zeros((self.p_max,), np.float32)
-            pos = 0
-            for sid, idx in enumerate(group):
-                s, e = self.data.seq_start_end[idx]
-                n = e - s
-                obs[pos:pos + n] = self.data.obs_traj[s:e]
-                pred[pos:pos + n] = self.data.pred_traj[s:e]
-                valid[pos:pos + n] = True
-                scene_ids[pos:pos + n] = sid
-                non_linear[pos:pos + n] = self.data.non_linear_ped[s:e]
-                pos += n
+            with span("data.pad"):
+                obs = np.zeros((self.p_max, obs_len, 2), np.float32)
+                pred = np.zeros((self.p_max, pred_len, 2), np.float32)
+                valid = np.zeros((self.p_max,), bool)
+                scene_ids = np.full((self.p_max,), -1, np.int32)
+                non_linear = np.zeros((self.p_max,), np.float32)
+                pos = 0
+                for sid, idx in enumerate(group):
+                    s, e = self.data.seq_start_end[idx]
+                    n = e - s
+                    obs[pos:pos + n] = self.data.obs_traj[s:e]
+                    pred[pos:pos + n] = self.data.pred_traj[s:e]
+                    valid[pos:pos + n] = True
+                    scene_ids[pos:pos + n] = sid
+                    non_linear[pos:pos + n] = self.data.non_linear_ped[s:e]
+                    pos += n
             yield CollatedBatch(obs, pred, valid, scene_ids, non_linear)
 
 

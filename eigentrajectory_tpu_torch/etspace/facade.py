@@ -18,6 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .anchor import generate_anchors, refine
 from .descriptor import ETBasis, fit_basis, project, reconstruct
 from .normalizer import compute_norm_params, normalize
@@ -127,40 +128,43 @@ def et_forward(
     of each scene (0 for a scene with none).
     """
     aux = dict(aux or {})
-    mask = moving_mask(obs_traj, static_dist)               # (B, N)
-    p = compute_norm_params(obs_traj, eps=_SCALE_EPS)
+    with span("et.project", detail=True):
+        mask = moving_mask(obs_traj, static_dist)               # (B, N)
+        p = compute_norm_params(obs_traj, eps=_SCALE_EPS)
 
-    # --- projection ---
-    c_obs_m = project(normalize(obs_traj, p, sca=True), et.basis_m.U_obs)
-    c_obs_s = project(normalize(obs_traj, p, sca=False), et.basis_s.U_obs)
-    c_obs = torch.where(mask[:, None, :], c_obs_m, c_obs_s).detach()  # (B, k, N)
+        # --- projection ---
+        c_obs_m = project(normalize(obs_traj, p, sca=True), et.basis_m.U_obs)
+        c_obs_s = project(normalize(obs_traj, p, sca=False), et.basis_s.U_obs)
+        c_obs = torch.where(mask[:, None, :], c_obs_m, c_obs_s).detach()  # (B, k, N)
 
-    # --- absolute coordinate, centred on the valid peds of each row, or
-    # with `center_scene_ids` (B, N) on the valid peds of each ped's scene
-    # (a segment mean: a packed row of many scenes gives each the numbers
-    # it gets alone) ---
-    obs_ori = p.ori[..., 0, :].transpose(1, 2)              # (B, 2, N)
-    valid_f = ped_valid.to(obs_ori.dtype)[:, None, :]       # (B, 1, N)
-    denom = torch.clamp_min(valid_f.sum(dim=2, keepdim=True), 1.0)
-    center_sid = aux.pop("center_scene_ids", None)
-    center = aux.pop("row_center", None)
-    if center is None and center_sid is None:
-        center = _row_mean(obs_ori, valid_f)
-    elif center is None:
-        same = (center_sid[:, :, None] == center_sid[:, None, :]).to(obs_ori.dtype) * valid_f
-        cnt = torch.clamp_min(same.sum(dim=2), 1.0)          # (B, N)
-        center = torch.bmm(same, (obs_ori * valid_f).transpose(1, 2))   # (B, N, 2)
-        center = (center / cnt[..., None]).transpose(1, 2)   # (B, 2, N)
-    obs_ori = (obs_ori - center) * valid_f
+        # --- absolute coordinate, centred on the valid peds of each row, or
+        # with `center_scene_ids` (B, N) on the valid peds of each ped's
+        # scene (a segment mean: a packed row of many scenes gives each the
+        # numbers it gets alone) ---
+        obs_ori = p.ori[..., 0, :].transpose(1, 2)              # (B, 2, N)
+        valid_f = ped_valid.to(obs_ori.dtype)[:, None, :]       # (B, 1, N)
+        denom = torch.clamp_min(valid_f.sum(dim=2, keepdim=True), 1.0)
+        center_sid = aux.pop("center_scene_ids", None)
+        center = aux.pop("row_center", None)
+        if center is None and center_sid is None:
+            center = _row_mean(obs_ori, valid_f)
+        elif center is None:
+            same = (center_sid[:, :, None] == center_sid[:, None, :]).to(obs_ori.dtype) * valid_f
+            cnt = torch.clamp_min(same.sum(dim=2), 1.0)          # (B, N)
+            center = torch.bmm(same, (obs_ori * valid_f).transpose(1, 2))   # (B, N, 2)
+            center = (center / cnt[..., None]).transpose(1, 2)   # (B, 2, N)
+        obs_ori = (obs_ori - center) * valid_f
 
     # --- prediction via the bridged predictor; it must see exactly the
     # scene's real peds ---
     aux["ped_valid"] = ped_valid
-    c_pred_refine = predictor_fn(c_obs, obs_ori, aux)       # (B, k, N, s)
+    with span("et.predictor", detail=True):
+        c_pred_refine = predictor_fn(c_obs, obs_ori, aux)       # (B, k, N, s)
 
     # --- anchor refinement ---
-    c_pred_m = refine(et.anchor_m, c_pred_refine)
-    c_pred_s = refine(et.anchor_s, c_pred_refine)
+    with span("et.refine", detail=True):
+        c_pred_m = refine(et.anchor_m, c_pred_refine)
+        c_pred_s = refine(et.anchor_s, c_pred_refine)
 
     if return_coefficients:
         return {

@@ -23,13 +23,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import ExpConfig
 from .etspace.descriptor import ETBasis
 from .etspace.facade import ETParams, et_forward
 from .ops.recon import fused_reconstruct
 from .train.trainer import ETTorchTrainer
+from .utils.profiling import count, span
 
 
 class ETPredictor:
@@ -86,20 +86,23 @@ class ETPredictor:
         n = obs_traj.shape[0]
         if scene_ids is None:
             scene_ids = np.zeros(n, np.int32)
-        # Each ped's scene row and its slot there, in request order.
-        _, row, counts = np.unique(np.asarray(scene_ids), return_inverse=True,
-                                   return_counts=True)
-        n_slots = -(-int(counts.max()) // self.bucket) * self.bucket
-        order = np.argsort(row, kind="stable")
-        slot = np.empty(n, np.int64)
-        slot[order] = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts)
-        flat = row * n_slots + slot
+        with span("serve.pad"):
+            # Each ped's scene row and its slot there, in request order.
+            _, row, counts = np.unique(np.asarray(scene_ids), return_inverse=True,
+                                       return_counts=True)
+            n_slots = -(-int(counts.max()) // self.bucket) * self.bucket
+            order = np.argsort(row, kind="stable")
+            slot = np.empty(n, np.int64)
+            slot[order] = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts)
+            flat = row * n_slots + slot
 
-        b = len(counts)
-        obs = np.zeros((b * n_slots, obs_traj.shape[1], 2), np.float32)
-        valid = np.zeros(b * n_slots, bool)
-        obs[flat] = obs_traj
-        valid[flat] = True
+            b = len(counts)
+            obs = np.zeros((b * n_slots, obs_traj.shape[1], 2), np.float32)
+            valid = np.zeros(b * n_slots, bool)
+            obs[flat] = obs_traj
+            valid[flat] = True
+        count("serve.slots_valid", n)
+        count("serve.slots_padded", b * n_slots)
 
         parts = []
         for replica, rows in zip(self._replicas, np.array_split(np.arange(b), len(self._replicas))):
@@ -108,7 +111,7 @@ class ETPredictor:
                 peds = np.flatnonzero((row >= lo) & (row < hi))
                 parts.append((peds, self._forward(replica, obs, valid, flat[peds], lo, hi,
                                                   n_slots)))
-        with record_function("serve.to_host"):
+        with span("serve.to_host"):
             if len(parts) == 1:
                 return parts[0][1].cpu().numpy()
             out = np.empty((self.cfg.num_samples, n, self.cfg.pred_len, 2),
@@ -125,12 +128,12 @@ class ETPredictor:
         tr, cfg = self.trainer, self.cfg
         predictor_fn, et, device = replica
         rows = slice(lo * n_slots, hi * n_slots)
-        with record_function("serve.to_device"):
+        with span("serve.to_device"):
             obs_t = torch.from_numpy(obs[rows].reshape(hi - lo, n_slots, -1, 2)).to(device,
                                                                                       tr.dtype)
             valid_t = torch.from_numpy(valid[rows].reshape(hi - lo, n_slots)).to(device)
             flat_t = torch.from_numpy(flat - lo * n_slots).to(device)
-        with record_function("serve.et_forward"):
+        with span("serve.et_forward"):
             # One scene a row: a collated predictor's scene mask is all true
             # within the row (and cut to the valid slots by its pre-hook).
             aux = tr.make_aux(valid_t, torch.zeros_like(valid_t, dtype=torch.int32))
@@ -138,8 +141,9 @@ class ETPredictor:
                               aux=aux, return_coefficients=True)
         # Only the requested rows are reconstructed, in request order: the
         # padded slots' coefficients stay behind.
-        c_m, c_s, u_m, u_s, ori, rot, sca, mask = tr.recon_args(coef, et)
-        c_m, c_s = c_m.index_select(1, flat_t), c_s.index_select(1, flat_t)
-        ori, rot, sca, mask = (x.index_select(0, flat_t) for x in (ori, rot, sca, mask))
-        with record_function("serve.reconstruct"):
+        with span("serve.gather"):
+            c_m, c_s, u_m, u_s, ori, rot, sca, mask = tr.recon_args(coef, et)
+            c_m, c_s = c_m.index_select(1, flat_t), c_s.index_select(1, flat_t)
+            ori, rot, sca, mask = (x.index_select(0, flat_t) for x in (ori, rot, sca, mask))
+        with span("serve.reconstruct"):
             return fused_reconstruct(c_m, c_s, u_m, u_s, ori, rot, sca, mask)  # (S, n, T, 2)

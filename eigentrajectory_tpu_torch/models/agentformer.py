@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ..parallel import SlotShard
+from ..utils.profiling import span
 from .common import Dropout, zero_invalid
 
 TF_MODEL_DIM = 256
@@ -261,47 +262,52 @@ class AgentFormerLight(nn.Module):
             every = shard.gather(torch.cat([valid[..., None].to(dtype), pre_motion[:, -1]], -1))
             key_valid, cur = every[..., 0] > 0.5, every[..., 1:]
         p = key_valid.shape[1]
-        key_bias = torch.where(key_valid, zero, torch.full_like(zero, -1e9))    # (B, P)
-        if self.conn_dist < 1000.0:
-            dist = torch.linalg.vector_norm(cur[:, :, None] - cur[:, None], dim=-1)
-            agent_mask = torch.where(dist > self.conn_dist / self.traj_scale,
-                                     torch.full_like(zero, -math.inf), zero)   # (B, P, P)
-        else:
-            agent_mask = torch.zeros((b, p, p), device=dev, dtype=dtype)
-        if scene_ids is not None:
-            cross_scene = scene_ids[:, :, None] != scene_ids[:, None, :]
-            agent_mask = agent_mask + torch.where(cross_scene, torch.full_like(zero, -1e9), zero)
-        if shard is not None:
-            agent_mask = agent_mask[:, q_slots]                                 # (B, n, P)
+        with span("agentformer.masks", detail=True):
+            key_bias = torch.where(key_valid, zero, torch.full_like(zero, -1e9))    # (B, P)
+            if self.conn_dist < 1000.0:
+                dist = torch.linalg.vector_norm(cur[:, :, None] - cur[:, None], dim=-1)
+                agent_mask = torch.where(dist > self.conn_dist / self.traj_scale,
+                                         torch.full_like(zero, -math.inf), zero)   # (B, P, P)
+            else:
+                agent_mask = torch.zeros((b, p, p), device=dev, dtype=dtype)
+            if scene_ids is not None:
+                cross_scene = scene_ids[:, :, None] != scene_ids[:, None, :]
+                agent_mask = agent_mask + torch.where(cross_scene, torch.full_like(zero, -1e9),
+                                                      zero)
+            if shard is not None:
+                agent_mask = agent_mask[:, q_slots]                             # (B, n, P)
 
-        def pad_bias(tq, tk):
-            # The (n, P) agent mask tiled over tq query and tk key steps, and
-            # the padded key slots masked: (B, tq * n, tk * P).
-            return agent_mask.repeat(1, tq, tk) + key_bias.repeat(1, tk)[:, None]
+            def pad_bias(tq, tk):
+                # The (n, P) agent mask tiled over tq query and tk key steps,
+                # and the padded key slots masked: (B, tq * n, tk * P).
+                return agent_mask.repeat(1, tq, tk) + key_bias.repeat(1, tk)[:, None]
+
+            sa, bias = _same_agent(q_slots, t, p, t), pad_bias(t, t)
 
         # --- context encoder ---
-        x = self.ctx_input_fc(pre_motion.reshape(b, t * n, 1))
-        x = self.ctx_pos_encoder(x, t, n, rows_ctx)
-        sa, bias = _same_agent(q_slots, t, p, t), pad_bias(t, t)
-        for i in range(NLAYER_ENC):
-            x = getattr(self, f"enc_layer_{i}")(x, sa, bias, shard, rows_ctx)
+        with span("agentformer.encoder", detail=True):
+            x = self.ctx_input_fc(pre_motion.reshape(b, t * n, 1))
+            x = self.ctx_pos_encoder(x, t, n, rows_ctx)
+            for i in range(NLAYER_ENC):
+                x = getattr(self, f"enc_layer_{i}")(x, sa, bias, shard, rows_ctx)
         context = x                                                             # (B, T*n, E)
 
         # --- future decoder: one causal pass over tf copies of the last token ---
-        rows_dec = None if shard is None else (shard.token_rows(tf, dev), tf * p)
-        dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                         # (B, tf*n, 1)
-        y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n, rows_dec)
-        sa_tgt = _same_agent(q_slots, tf, p, tf)
-        causal = torch.where(torch.arange(tf * n, device=dev)[:, None] // n
-                             >= torch.arange(tf * p, device=dev)[None, :] // p, zero,
-                             torch.full_like(zero, -math.inf))
-        bias_tgt = causal + pad_bias(tf, tf)
-        sa_mem, bias_mem = _same_agent(q_slots, tf, p, t), pad_bias(tf, t)
-        for i in range(NLAYER_DEC):
-            y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem, bias_mem,
-                                                shard, rows_dec)
-
-        seq_out = y @ self.out_fc_kernel + self.out_fc_bias                      # (B, tf*n, s)
+        with span("agentformer.masks", detail=True):
+            sa_tgt = _same_agent(q_slots, tf, p, tf)
+            causal = torch.where(torch.arange(tf * n, device=dev)[:, None] // n
+                                 >= torch.arange(tf * p, device=dev)[None, :] // p, zero,
+                                 torch.full_like(zero, -math.inf))
+            bias_tgt = causal + pad_bias(tf, tf)
+            sa_mem, bias_mem = _same_agent(q_slots, tf, p, t), pad_bias(tf, t)
+        with span("agentformer.decoder", detail=True):
+            rows_dec = None if shard is None else (shard.token_rows(tf, dev), tf * p)
+            dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                     # (B, tf*n, 1)
+            y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n, rows_dec)
+            for i in range(NLAYER_DEC):
+                y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem,
+                                                    bias_mem, shard, rows_dec)
+            seq_out = y @ self.out_fc_kernel + self.out_fc_bias                  # (B, tf*n, s)
         return seq_out.reshape(b, tf, n, self.forecast_dim).transpose(1, 2)      # (B, n, tf, s)
 
 

@@ -26,9 +26,9 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.group import group_ranks
+from ..utils.profiling import span
 from .common import PReLU, TorchConv2d, zero_invalid
 
 
@@ -44,7 +44,7 @@ def find_group_indices(dist_mat: torch.Tensor, th: torch.Tensor, valid: torch.Te
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dist_mat (B, N, N), th a scalar tensor, valid (B, N) -> (ranks (B, N)
     int32 in [0, N), n_groups (B,) int32, the padded singletons included)."""
-    with record_function("gpgraph.group_relabel"):
+    with span("gpgraph.group_relabel"):
         return group_ranks(merge_mask(dist_mat, th, valid).contiguous(), valid.contiguous())
 
 

@@ -24,9 +24,9 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..data.batching import slot_width
+from ..utils.profiling import span
 
 
 def make_mesh(n_data: Optional[int] = None,
@@ -159,7 +159,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        with record_function("train.all_gather"):
+        with span("train.all_gather"):
             src = (x.cpu() if _through_host(x) else x).detach().contiguous()
             parts = [torch.empty_like(src) for _ in range(_RANK.world)]
             dist.all_gather(parts, src)
@@ -167,7 +167,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with record_function("train.all_gather"):
+        with span("train.all_gather"):
             # A copy: the reduction is in place, and `grad` is autograd's.
             buf = (grad.cpu().contiguous() if _through_host(grad) else
                    grad.clone(memory_format=torch.contiguous_format))

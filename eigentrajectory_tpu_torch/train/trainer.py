@@ -83,7 +83,6 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import metrics as M
 from .. import parallel
@@ -98,7 +97,7 @@ from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_fla
 from ..models import get_baseline
 from ..models.common import draw_edge_keeps, set_dropout_generator, set_edge_keeps
 from ..ops.recon import fused_recon_metrics
-from ..utils.profiling import StepTimer, trace_annotation
+from ..utils.profiling import StepTimer, count, span, tracing
 
 
 class StepPart(NamedTuple):
@@ -342,9 +341,9 @@ class ETTorchTrainer:
 
     def _chunk_backward(self, obs, pred, valid, scene_info, part=None) -> torch.Tensor:
         """Add one chunk's gradient to `.grad`; returns its share of the loss."""
-        with record_function("train.forward"):
+        with span("train.forward"):
             loss = self._chunk_loss(obs, pred, valid, scene_info, part)
-        with record_function("train.backward"):
+        with span("train.backward"):
             loss.backward()
         return loss.detach()
 
@@ -438,7 +437,7 @@ class ETTorchTrainer:
         summed entry. A collated step whose summed loss is not finite gets
         zero gradients and loss 0, as the single process's nan_to_num of the
         batch's loss gives. Returns the step's loss."""
-        with record_function("train.all_reduce"):
+        with span("train.all_reduce"):
             grads = [p.grad for p in self._called]
             stats = list(self.model.buffers())
             w = n_scenes.to(loss.dtype).reshape(1)
@@ -479,7 +478,7 @@ class ETTorchTrainer:
         rank's part of it, `step_args`); returns the step loss as a 0-dim
         tensor, without waiting for the device."""
         loss = self.loss_and_grads(obs, pred, valid, scene_info, part=part)
-        with record_function("train.optimizer"):
+        with span("train.optimizer"):
             self.apply_gradients()
         return loss
 
@@ -518,7 +517,7 @@ class ETTorchTrainer:
         self.model.train()
         losses = []
         for batch in self.train_batches(epoch):
-            with record_function("train.to_device"):
+            with span("train.to_device"):
                 args, part = self.step_args(batch)
             ctx = (self.step_timer.measure() if self.step_timer is not None
                    else contextlib.nullcontext())
@@ -579,9 +578,9 @@ class ETTorchTrainer:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             with self.epoch_timer.measure():
-                with trace_annotation(f"train_epoch_{epoch}"):
+                with span("train.epoch"):
                     self.train(epoch)
-                with trace_annotation(f"valid_epoch_{epoch}"):
+                with span("valid.epoch"):
                     self.valid(epoch)
             if epoch == 0 or self.log["val_loss"][-1] < min(self.log["val_loss"][:-1]):
                 self.save_model()
@@ -632,14 +631,14 @@ class ETTorchTrainer:
         """
         cfg = self.cfg
         b, n = valid.shape
-        with record_function("eval.et_forward"):
+        with span("eval.et_forward"):
             coef = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
                               return_coefficients=True)
         args = (*self.recon_args(coef), pred.reshape(b * n, cfg.pred_len, 2).contiguous())
-        with record_function("eval.recon_metrics"):
+        with span("eval.recon_metrics"):
             recon, ade, fde, tcc = fused_recon_metrics(*args)
         recon = recon.reshape(recon.shape[0], b, n, cfg.pred_len, 2).transpose(0, 1)
-        with record_function("eval.col"):
+        with span("eval.col"):
             cols = M.col(recon, valid)
         return ade.reshape(b, n), fde.reshape(b, n), tcc.reshape(b, n), cols
 
@@ -665,15 +664,15 @@ class ETTorchTrainer:
         aux = self.make_aux(valid, scene_ids)
         aux["center_scene_ids"] = scene_ids
         aux["isolate_scenes"] = True
-        with record_function("eval.et_forward"):
+        with span("eval.et_forward"):
             coef = et_forward(self.et, self._predictor_fn, obs, valid, cfg.static_dist,
                               aux=aux, return_coefficients=True)
         args = (*self.recon_args(coef), pred.reshape(p, cfg.pred_len, 2).contiguous())
-        with record_function("eval.recon_metrics"):
+        with span("eval.recon_metrics"):
             recon, ade, fde, tcc = fused_recon_metrics(*args)          # recon (S, P, T, 2)
-        with record_function("eval.col_gather"):
+        with span("eval.col_gather"):
             recon_g = recon[:, gather].transpose(0, 1)                  # (G, S, m, T, 2)
-        with record_function("eval.col"):
+        with span("eval.col"):
             col = M.col(recon_g, gmask)[inv_g, inv_i]
         return ade, fde, tcc, col
 
@@ -713,23 +712,27 @@ class ETTorchTrainer:
         self.model.eval()
         meters = {k: M.AverageMeter() for k in ("ADE", "FDE", "TCC", "COL")}
         for batch in self._test_batches(eval_batch, eval_ped_batch):
-            with record_function("eval.to_device"):
+            if tracing():
+                count("eval.slots_valid", batch.ped_valid.sum())
+                count("eval.slots_padded", batch.ped_valid.size)
+            with span("eval.to_device"):
                 args = self._to_device(batch)
                 if self.collated:
                     args = (*args, *(torch.from_numpy(x).to(self.device)
                                      for x in scene_gather(batch.scene_ids)))
             metrics = self.packed_eval_step(*args) if self.collated else self.eval_step(*args[:3])
-            with record_function("eval.to_host"):
+            with span("eval.to_host"):
                 res = torch.stack(metrics).cpu().numpy()
-            for j, name in enumerate(("ADE", "FDE", "TCC", "COL")):
-                meters[name].extend(res[j][batch.ped_valid])
+            with span("eval.meters"):
+                for j, name in enumerate(("ADE", "FDE", "TCC", "COL")):
+                    meters[name].extend(res[j][batch.ped_valid])
         if self.world == 1:
             return {k: m.mean() for k, m in meters.items()}
         sums = [float(np.concatenate(m.data).astype(np.float64).sum()) if m.data else 0.0
                 for m in meters.values()]
-        *sums, count = self._sum_over_ranks(sums + [float(len(meters["ADE"]) if
-                                                          meters["ADE"].data else 0)])
-        return {k: v / max(count, 1.0) for k, v in zip(meters, sums)}
+        *sums, peds = self._sum_over_ranks(sums + [float(len(meters["ADE"]) if
+                                                         meters["ADE"].data else 0)])
+        return {k: v / max(peds, 1.0) for k, v in zip(meters, sums)}
 
     # --------------------------------------------------------- checkpoints
     def save_model(self, filename: str = "model_best.msgpack"):

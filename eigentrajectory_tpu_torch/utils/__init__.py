@@ -1,2 +1,2 @@
 from .misc import print_arguments
-from .profiling import StepTimer, start_trace, stop_trace, trace_annotation
+from .profiling import StepTimer, count, counters, span
