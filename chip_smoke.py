@@ -6,7 +6,7 @@ Run from the root of the repository on a machine with an NVIDIA H100 and the
 CUDA toolkit. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's three CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
+2. builds the port's four CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
    (one nvcc each, started together) and prints their ptxas register lines;
 3. holds each kernel against its plain PyTorch version on the card
    (atol = rtol = 1e-4: the sums run in another order):
@@ -17,6 +17,11 @@ CUDA toolkit. It
    origin; both at the edges of the kernels' 32-pedestrian tile (N = 1, 31,
    32, 33 and 109) with a mixed, an all-moving and an all-static mask; and
    on every case the two kernels must give the same trajectories bit for bit;
+   after step 4's test(), `fused_col` (within 1e-5: COL counts samples) on
+   the inputs of ET-STGCNN's test() of the 320 x 57 block, on a block of
+   dense scenes (57 walkers a row), on rows of 500 slots (past a block's
+   threads and its 48 KB of shared memory), with NaN futures, and on the
+   packed layout through a gather map;
 4. drives the eval path, `ETTorchTrainer.test()`, of ET-STGCNN (hotel
    configuration, committed hotel checkpoint) and of ET-SGCN (zara1, committed
    zara1 checkpoint) on a synthetic test split sized like hotel's (301
@@ -44,7 +49,8 @@ CUDA toolkit. It
    two events, which holds the host's share. `output_fill_ms` is what a
    PyTorch zero_() of the same outputs alone takes by the cold method. The
    plain versions are timed by a loop of calls; test() and predict()
-   (request (b)) on the host clock;
+   (request (b)) on the host clock. `fused_col` is timed the same way at
+   the main path's inputs and at the dense block, each beside its bound;
 7. drives the training path of ET-STGCNN (hotel configuration, batch 128 x
    N_max 57) on synthetic splits of 1,301 train scenes (11 steps an epoch,
    the last block with 21 real scenes and 107 padding rows), 301 val and the
@@ -213,14 +219,16 @@ CUDA toolkit. It
    the split files card vs CPU (within 1e-5); and a trainer that fits 2
    epochs, then a fresh one whose `load_model()` must restore the loss log
    the file holds. It prints each check's largest error;
-14. prints a JSON line with the three kernels' numbers (the launches of
-   every path, step 12's ranks' and step 13's included), then as its last
+14. prints a JSON line with the four kernels' numbers (the launches of
+   every path, step 12's ranks' and step 13's included; `fused_col`'s every
+   launch of the run but its own checks' and timings', the host-clock loops
+   of test() included), then as its last
    line {"ok": true, "device": {...}}.
 
 `--profile OUT_DIR` also profiles one test() and one predict() of each model
 (ET-PECNet's, ET-AgentFormer's, ET-DMRGCN's, ET-Graph-TERN's and step 11's
-included, with the span `eval.col_gather` of the packed eval's scene gather
-and `gpgraph.group_relabel`) and one training epoch of ET-STGCNN, ET-PECNet,
+included, with the span `eval.col` of `fused_col` and
+`gpgraph.group_relabel`) and one training epoch of ET-STGCNN, ET-PECNet,
 ET-AgentFormer, ET-DMRGCN and the three models of step 11 with
 torch.profiler, writes the tables to OUT_DIR/profile_<run>.txt and prints the
 device time of each span. `--ab OLD_CSRC_DIR` does steps 1 and 2, then
@@ -288,7 +296,7 @@ GROUP_ZONE_RUNS = 10                   # host-clock runs of its test() and predi
 # Each kernel's span in the trainer and the predictor, and a part of its
 # name in the profiler's trace.
 KERNEL_SPANS = {"gpgraph.group_relabel": "group_relabel_kernel",
-                "eval.recon_metrics": "recon_metrics_kernel",
+                "eval.recon_metrics": "recon_metrics_kernel", "eval.col": "col_kernel",
                 "serve.reconstruct": "reconstruct_kernel"}
 
 
@@ -689,6 +697,124 @@ def _reconstruct_bound_ms(case):
     the scale and the rotate+translate."""
     n = case["c_m"].shape[1]
     return _bound(_recon_bytes_in(case), S * n * T * 2 * 4, n * S * T * (2 * 2 * K + 2 + 6))
+
+
+def _col_bound_ms(valid, gather=None):
+    """Least time for fused_col on this mask: the mask, each valid
+    pedestrian's first 5 positions a sample (all its window needs) and its
+    gather entry read once, COL written once; per (sample, valid pedestrian)
+    the window's 4 x 2 differences and scalings and 13 x 2 sums, per
+    (sample, valid pair) 14 distances of 7 operations (2 differences, 2
+    products, a sum, a square root, a compare)."""
+    counts = valid.sum(dim=1).long()
+    nv, pairs = int(counts.sum()), int((counts * (counts - 1) // 2).sum())
+    read = valid.numel() + nv * S * 5 * 2 * 4 + (nv * 8 if gather is not None else 0)
+    return _bound(read, valid.numel() * 4, S * (nv * (4 * 2 * 2 + 13 * 2) + pairs * 14 * 7))
+
+
+def _col_walkers(rows, slots, dense, seed, spread=3.0):
+    """recon (S, rows*slots, T, 2) of walkers that start within `spread` of
+    each other row by row (close pairs collide in some samples), and valid
+    (rows, slots) with each row's first `dense` slots set, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    start = rng.random(size=(1, rows, slots, 1, 2)) * spread
+    start += 10.0 * np.arange(rows)[None, :, None, None, None]
+    vel = rng.normal(size=(1, rows, slots, 1, 2)) * 0.2
+    noise = 0.05 * np.cumsum(rng.normal(size=(S, rows, slots, T, 2)), axis=3)
+    recon = (start + vel * np.arange(T)[None, None, None, :, None] + noise).astype(np.float32)
+    valid = np.zeros((rows, slots), bool)
+    valid[:, :dense] = True
+    return (torch.from_numpy(recon.reshape(S, rows * slots, T, 2)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+def _col_main_inputs(tr):
+    """fused_col's inputs on the main path: one test() of the block."""
+    from eigentrajectory_tpu_torch.train import trainer as trainer_module
+
+    seen, real = [], trainer_module.fused_col
+
+    def noting(recon, valid, gather=None):
+        seen.append((recon, valid))
+        return real(recon, valid, gather)
+
+    trainer_module.fused_col = noting
+    try:
+        tr.test(eval_batch=EVAL_BATCH)
+    finally:
+        trainer_module.fused_col = real
+    if len(seen) != 1:
+        raise AssertionError(f"test() of one block called fused_col {len(seen)} times")
+    return seen[0]
+
+
+def _check_col(col, card, main_args):
+    """fused_col against its plain version on the card (COL counts samples:
+    within 1e-5) on the main path's inputs, a block of dense scenes of 57
+    walkers, the packed layout through a gather map, NaN futures, rows
+    longer than a block's threads and past 48 KB of shared memory; returns
+    the max abs error."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.data.batching import scene_gather
+
+    recon_d, valid_d = _col_walkers(EVAL_BATCH, N_MAX, N_MAX, seed=21)
+    long_r, long_v = _col_walkers(2, 500, 480, seed=22)
+    nan_r = main_args[0].clone()
+    nan_r[3, ::7, 2] = float("nan")
+    sizes = np.random.default_rng(23).integers(1, 21, size=120)
+    ids = np.random.default_rng(24).permutation(np.repeat(np.arange(len(sizes)), sizes))
+    packed_r = _col_walkers(1, len(ids), len(ids), seed=25, spread=8.0)[0]
+    packed = tuple(torch.from_numpy(x).cuda() for x in scene_gather(ids)[:2])
+    cases = {f"main path {EVAL_BATCH}x{N_MAX}": main_args,
+             f"dense {EVAL_BATCH}x{N_MAX}": (recon_d, valid_d), "long rows 2x500": (long_r, long_v),
+             "NaN futures": (nan_r, main_args[1]),
+             f"packed {len(ids)} walkers in {len(sizes)} scenes": (packed_r, packed[1], packed[0])}
+    err = 0.0
+    for label, args in cases.items():
+        got, want = col.fused_col(*args), col.fused_col_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
+                                   msg=lambda m: f"fused_col {label}: {m}")
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        print(f"fused_col check {label}: max_abs_err={e:.3e}, mean COL "
+              f"{float(got[args[1]].mean()):.4f} over {int(args[1].sum())} walkers", flush=True)
+    return err
+
+
+def _col_times(col, card, main_args):
+    """fused_col's row: cold and warm device ms by graph replay at the main
+    path's inputs (each of COLD_SETS_EVAL sets a copy of the 35 MB
+    trajectories), the wrapper loop's ms, the plain version's, and the
+    bound; the same at the dense block of 57 walkers a row."""
+    import torch
+
+    out = {}
+    for label, args in (("main", main_args),
+                        ("dense", _col_walkers(EVAL_BATCH, N_MAX, N_MAX, seed=21))):
+        sets = [args] + [tuple(x.clone() for x in args) for _ in range(COLD_SETS_EVAL - 1)]
+        cold_ms = _replay_ms(_capture(col.fused_col, sets, GRAPH_LAUNCHES_EVAL),
+                             GRAPH_LAUNCHES_EVAL)
+        warm_ms = _replay_ms(_capture(col.fused_col, sets[:1], GRAPH_LAUNCHES_EVAL),
+                             GRAPH_LAUNCHES_EVAL)
+        call_ms = _call_ms(lambda: col.fused_col(*args), 50)
+        plain_ms = _call_ms(lambda: col.fused_col_plain(*args), 10)
+        bound_ms, bound_by = _col_bound_ms(args[1])
+        print(f"[{card}] fused_col {label} {EVAL_BATCH}x{N_MAX} ({int(args[1].sum())} walkers): "
+              f"device {cold_ms:.4f} ms at a cold cache, {warm_ms:.4f} ms L2-warm; wrapper loop "
+              f"{call_ms:.4f} ms a call; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms "
+              f"({bound_by}), {bound_ms / cold_ms:.1%} of it reached", flush=True)
+        row = dict(ms=cold_ms, kernel_ms=cold_ms, warm_ms=warm_ms, call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if label == "main":
+            out.update(row)
+        else:
+            out["dense_57"] = row
+    return out
 
 
 def _walkers(n, seed):
@@ -2636,7 +2762,7 @@ def _dp_cases(world, tmp, th, split=1, agentformer=True):
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
     from eigentrajectory_tpu_torch.interop import params_from_jax, read_flax_msgpack
-    from eigentrajectory_tpu_torch.ops import group, recon
+    from eigentrajectory_tpu_torch.ops import col, group, recon
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
     from eigentrajectory_tpu_torch.train import trainer as trainer_module
 
@@ -2655,6 +2781,7 @@ def _dp_cases(world, tmp, th, split=1, agentformer=True):
 
     trainer_module.set_edge_keeps = noting
     recon.LAUNCHES = recon.RECONSTRUCT_LAUNCHES = group.LAUNCHES = 0
+    col_before = col.LAUNCHES           # not reset: world 1 runs in the main process
     out = {}
     try:
         seq = _sequenced_splits(make_synthetic_data(n_scenes=N_SCENES, max_peds=5, seed=0))
@@ -2744,7 +2871,8 @@ def _dp_cases(world, tmp, th, split=1, agentformer=True):
     finally:
         trainer_module.set_edge_keeps = set_keeps
     out["launches"] = {"recon_metrics": recon.LAUNCHES,
-                       "reconstruct": recon.RECONSTRUCT_LAUNCHES, "group": group.LAUNCHES}
+                       "reconstruct": recon.RECONSTRUCT_LAUNCHES, "group": group.LAUNCHES,
+                       "col": col.LAUNCHES - col_before}
     return out
 
 
@@ -3413,7 +3541,7 @@ def main(argv):
     import numpy as np
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
-    from eigentrajectory_tpu_torch.ops import build, group, recon
+    from eigentrajectory_tpu_torch.ops import build, col, group, recon
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -3423,7 +3551,7 @@ def main(argv):
     print(card, flush=True)
 
     # --- 1. build: one nvcc for each source, started together ---
-    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE)
+    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
@@ -3493,6 +3621,11 @@ def main(argv):
         recon_metrics_launches += _check_test(name, tr, tr_cpu, recon)[1]
         trainers[name] = tr
 
+    # --- 3b. fused_col against its plain version; its own launches are not the paths' ---
+    col_before = col.LAUNCHES
+    col_main_args = _col_main_inputs(trainers["stgcnn"])
+    col_err = _check_col(col, card, col_main_args)
+
     # --- 4. predict() of both models, card against CPU ---
     whole = (data.obs_traj, np.repeat(np.arange(N_SCENES), data.num_peds_in_seq))
     requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
@@ -3506,6 +3639,8 @@ def main(argv):
     # --- 5. times ---
     times, r_times = (_kernel_times(recon, card, *spec)
                       for spec in _timed_kernels(main_case, serve_case))
+    col_times = _col_times(col, card, col_main_args)
+    col_side = col.LAUNCHES - col_before - 1     # the main-path test() of 3b counts
 
     walls = {}
     for name, tr in trainers.items():
@@ -3556,6 +3691,7 @@ def main(argv):
     recon_metrics_launches += dp_counts["recon_metrics"]
     reconstruct_launches += dp_counts["reconstruct"]
     counts["group"] += dp_counts["group"]
+    col_launches = col.LAUNCHES - col_side + dp_counts["col"]
 
     # --- 13. the native loader on the main path; dormant modules; analysis; the log ---
     recon_metrics_launches += _native_dormant_phase(card, recon)
@@ -3581,7 +3717,10 @@ def main(argv):
             {**main_times, "at_301x128": relabel_times[(N_SCENES, BUCKET)],
              "at_1x256": relabel_times[(1, 2 * BUCKET)],
              "all_merge_at_4x57": relabel_times[("all-merge", 4, N_MAX)],
-             "all_merge_at_1x256": relabel_times[("all-merge", 1, 2 * BUCKET)]})]}))
+             "all_merge_at_1x256": relabel_times[("all-merge", 1, 2 * BUCKET)]}),
+        # No Pallas kernel: metrics.col, which XLA fuses on the TPU.
+        row("fused_col", col.SOURCE, "eigentrajectory_tpu/metrics.py:84", col_launches,
+            col_err, col_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

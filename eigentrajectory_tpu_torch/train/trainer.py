@@ -96,6 +96,7 @@ from ..interop import (jax_param_paths, params_from_jax, params_to_jax, read_fla
                        write_flax_msgpack)
 from ..models import get_baseline
 from ..models.common import draw_edge_keeps, set_dropout_generator, set_edge_keeps
+from ..ops.col import fused_col
 from ..ops.recon import fused_recon_metrics
 from ..utils.profiling import StepTimer, count, span, tracing
 
@@ -636,10 +637,9 @@ class ETTorchTrainer:
                               return_coefficients=True)
         args = (*self.recon_args(coef), pred.reshape(b * n, cfg.pred_len, 2).contiguous())
         with span("eval.recon_metrics"):
-            recon, ade, fde, tcc = fused_recon_metrics(*args)
-        recon = recon.reshape(recon.shape[0], b, n, cfg.pred_len, 2).transpose(0, 1)
+            recon, ade, fde, tcc = fused_recon_metrics(*args)          # recon (S, B*N, T, 2)
         with span("eval.col"):
-            cols = M.col(recon, valid)
+            cols = fused_col(recon, valid)
         return ade.reshape(b, n), fde.reshape(b, n), tcc.reshape(b, n), cols
 
     @torch.no_grad()
@@ -656,8 +656,9 @@ class ETTorchTrainer:
         The reference evaluates one scene a forward, so the origins are
         centred per scene here (`center_scene_ids`), and an attention
         predictor is told to keep to each scene (`isolate_scenes`). COL runs
-        on the (G, m) blocks of the batch's scenes, not on the flat (P, P)
-        pairs, and is scattered back to the slots.
+        on the (G, m) blocks of the batch's scenes (the kernel reads them
+        through `gather`), not on the flat (P, P) pairs, and is scattered
+        back to the slots.
         """
         cfg = self.cfg
         p = valid.shape[1]
@@ -670,10 +671,8 @@ class ETTorchTrainer:
         args = (*self.recon_args(coef), pred.reshape(p, cfg.pred_len, 2).contiguous())
         with span("eval.recon_metrics"):
             recon, ade, fde, tcc = fused_recon_metrics(*args)          # recon (S, P, T, 2)
-        with span("eval.col_gather"):
-            recon_g = recon[:, gather].transpose(0, 1)                  # (G, S, m, T, 2)
         with span("eval.col"):
-            col = M.col(recon_g, gmask)[inv_g, inv_i]
+            col = fused_col(recon, gmask, gather)[inv_g, inv_i]
         return ade, fde, tcc, col
 
     def _own(self, batches):

@@ -57,3 +57,22 @@ def test_the_kernels_share_one_header():
     for source in ("reconstruct.cu", "recon_metrics.cu"):
         names = [os.path.basename(p) for p in build.source_files(source)]
         assert names == [source, "recon_tile.cuh"]
+
+
+@pytest.mark.parametrize("source,headers", [("reconstruct.cu", ["recon_tile.cuh"]),
+                                            ("recon_metrics.cu", ["recon_tile.cuh"]),
+                                            ("group_relabel.cu", []), ("col.cu", [])])
+def test_each_kernel_source_is_hashed_with_its_headers(source, headers):
+    """Every source the wrappers build: the files its hash covers, and a
+    library of its own name."""
+    names = [os.path.basename(p) for p in build.source_files(source)]
+    assert names == [source, *headers]
+    stem = os.path.splitext(source)[0]
+    assert os.path.basename(build.library_path(source)).startswith(stem + "-")
+
+
+def test_the_wrappers_build_every_source_under_csrc():
+    from eigentrajectory_tpu_torch.ops import col, group, recon
+
+    built = {recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE}
+    assert built == {name for name in os.listdir(build.CSRC_DIR) if name.endswith(".cu")}

@@ -139,3 +139,30 @@ def test_relabel_bound_counts_a_step_a_row_holding_a_merge(monkeypatch, make, b,
     assert ms == pytest.approx((seen["read"] + seen["write"]) / 3.35e12 * 1e3, rel=1e-12)
     if (b, n) == (1, 256):
         assert seen["read"] + seen["write"] == 33924 and round(ms, 8) == 1.013e-05
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+def test_col_bound_counts_the_valid_walkers_and_pairs_alone(monkeypatch, gathered):
+    """fused_col's least time reads the mask, 5 positions a (sample, valid
+    walker) (and its gather entry) and writes COL a slot; it counts the
+    window a (sample, valid walker) and 14 distances a (sample, valid pair):
+    padding costs its mask and output bytes only."""
+    import torch
+
+    valid = torch.zeros(4, 57, dtype=torch.bool)
+    valid[0, :2], valid[1, :5], valid[3, :57] = True, True, True
+    n, pairs = 2 + 5 + 57, 1 + 10 + 57 * 56 // 2
+    seen = {}
+    real = chip_smoke._bound
+
+    def noting(read, write, ops):
+        seen.update(read=read, write=write, ops=ops)
+        return real(read, write, ops)
+
+    monkeypatch.setattr(chip_smoke, "_bound", noting)
+    gather = torch.zeros(4, 57, dtype=torch.long) if gathered else None
+    ms, by = chip_smoke._col_bound_ms(valid, gather)
+    assert seen == {"read": 4 * 57 + n * S * 40 + (8 * n if gathered else 0),
+                    "write": 4 * 57 * 4, "ops": S * (n * 42 + pairs * 98)}
+    assert by == "operations"
+    assert ms == pytest.approx(seen["ops"] / 67e12 * 1e3, rel=1e-12)

@@ -38,7 +38,7 @@ EVAL = {"data.pad": (None, 1), "eval.to_device": (None, 1), "eval.et_forward": (
         **{name: ("eval.et_forward", 1) for name in ET},
         "eval.recon_metrics": (None, 1), "eval.col": (None, 1), "eval.to_host": (None, 1),
         "eval.meters": (None, 1)}
-PACKED_EVAL = {**EVAL, "eval.col_gather": (None, 1), "agentformer.masks": ("et.predictor", 2),
+PACKED_EVAL = {**EVAL, "agentformer.masks": ("et.predictor", 2),
                "agentformer.encoder": ("et.predictor", 1),
                "agentformer.decoder": ("et.predictor", 1)}
 
