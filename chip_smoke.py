@@ -6,8 +6,9 @@ Run from the root of the repository on a machine with an NVIDIA H100 and the
 CUDA toolkit. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's four CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
-   (one nvcc each, started together) and prints their ptxas register lines;
+2. builds the port's five CUDA kernels from `eigentrajectory_tpu_torch/ops/csrc`
+   (one nvcc each, started together) and prints their ptxas register and
+   spill lines;
 3. holds each kernel against its plain PyTorch version on the card
    (atol = rtol = 1e-4: the sums run in another order):
    `fused_recon_metrics` at the eval shape (k=6, S=20, T=12, N=320*57), at a
@@ -100,6 +101,14 @@ CUDA toolkit. It
    every mean; `predict()` (a), (b), (c) at 32 slots a scene, each card vs
    the CPU's float32 (within 1e-4) and float64 runs, with the peak device
    memory of (b); host-clock medians of that test() and predict() (b);
+   9b: the agent-aware attention kernel (`agent_attention`) against its plain
+   version (within 1e-4) in its three kinds (encoder, the decoder's causal
+   self-attention, cross-attention) at the serve cell's mean request (158
+   rows of 32 slots), at the packed row of 147 slots with scene ids and
+   with an -inf agent mask; its cold and warm device ms, wrapper-loop ms,
+   plain ms and f32 bound at the request and at the packed row, each kind
+   and a forward's six attentions; the peak device memory of request (b)
+   at 32 and at 128 slots a scene (the futures within 1e-5 of each other);
    training packing 128 pedestrians into 147 slots: `init_descriptor()` card
    vs CPU, one step's loss and gradients with dropout off card vs CPU f32 vs
    f64, `fit(2)` with dropout (the trainer's own stream), `fit(1)` +
@@ -283,9 +292,14 @@ COLLATED_MODELS = (("pecnet", "eigentrajectory-pecnet-univ.json"),
 COLLATED_MAX_PEDS, EVAL_PED_BATCH, COLLATED_EPOCHS = 20, 2048, 2
 # ET-AgentFormer (zara2 checkpoint) on the collated splits: test() packs to the
 # model's cap of 128 pedestrians (P = 147 slots); predict() pads each scene to
-# AF_BUCKET slots, since every token of a row attends to every other (at 128
-# slots one f32 score tensor of request (b) would take 10 GB).
+# AF_BUCKET slots, the serve cell's (step 9b also serves request (b) at BUCKET).
 AGENTFORMER_CFG, AF_BUCKET, AF_EPOCHS = "eigentrajectory-agentformer-zara2.json", 32, 2
+# Its attention kernel, timed at the serve cell's mean request (158.5 scenes
+# a request at AF_BUCKET slots) and at the packed test() row: each kind's
+# (query steps, key steps, causal); a forward runs two of each.
+ATTN_KINDS = {"encoder": (8, 8, False), "decoder_self": (6, 6, True), "cross": (6, 8, False)}
+ATTN_WIDTH, ATTN_HEADS = 256, 8
+ATTN_SERVE_ROWS, ATTN_PACKED_SLOTS, ATTN_LAUNCHES = 158, 147, 10
 # Step 10: ET-DMRGCN and ET-Graph-TERN (eth configurations, the reference's
 # eth weights) on the sequenced splits; ET-DMRGCN trains MULTIREL_EPOCHS.
 MULTIREL_MODELS, MULTIREL_EPOCHS = ("dmrgcn", "graphtern"), 2
@@ -815,6 +829,221 @@ def _col_times(col, card, main_args):
         else:
             out["dense_57"] = row
     return out
+
+
+def _attention_inputs(kind, b, p, seed, scenes=None, cut=False):
+    """`agent_attention`'s arguments on the card for `b` rows of `p` slots:
+    q, k, v and q_self, k_self as the projections leave them (views of
+    (B, L, 3E) and (B, L, 2E) tensors; cross-attention's k, v of a
+    (B, S, 2E) one), q and q_self scaled by 1/sqrt(32); the agent mask with
+    -1e9 across `scenes` (-1: padding) or -inf between slots farther than
+    0.8 apart under `cut`; the key bias -1e9 on each row's padded slots
+    (2-20 valid of each row, or the ids' -1)."""
+    import torch
+
+    tq, tk, causal = ATTN_KINDS[kind]
+    e = ATTN_WIDTH
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=g).cuda()
+    if kind == "cross":
+        q, q_self = rand(b, tq * p, e), rand(b, tq * p, e)
+        k, v = rand(b, tk * p, 2 * e).chunk(2, dim=-1)
+        k_self = rand(b, tk * p, e)
+    else:
+        q, k, v = rand(b, tq * p, 3 * e).chunk(3, dim=-1)
+        q_self, k_self = rand(b, tq * p, 2 * e).chunk(2, dim=-1)
+    scaling = (e // ATTN_HEADS) ** -0.5
+    if scenes is None:
+        valid = torch.arange(p)[None, :] < torch.randint(2, min(p, 20) + 1, (b, 1), generator=g)
+    else:
+        ids = torch.as_tensor(scenes)[None].expand(b, p)
+        valid = ids >= 0
+    zero = torch.zeros(())
+    key_bias = torch.where(valid, zero, torch.full_like(zero, -1e9))
+    agent_mask = torch.zeros(b, p, p)
+    if cut:
+        cur = torch.rand(b, p, 2, generator=g) * 2
+        dist = torch.linalg.vector_norm(cur[:, :, None] - cur[:, None], dim=-1)
+        agent_mask = torch.where(dist > 0.8, torch.full_like(zero, -math.inf), zero)
+    if scenes is not None:
+        agent_mask = agent_mask + torch.where(ids[:, :, None] != ids[:, None, :],
+                                              torch.full_like(zero, -1e9), zero)
+    return (q * scaling, k, v, q_self * scaling, k_self, agent_mask.cuda(), key_bias.cuda(),
+            ATTN_HEADS, causal)
+
+
+def _packed_ids(p, seed, pad=4):
+    """Scene ids of a packed row of p slots: scenes of 2-20 interleaved,
+    the last `pad` slots padding (-1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < p - pad:
+        sizes.append(int(rng.integers(2, COLLATED_MAX_PEDS + 1)))
+    ids = np.repeat(np.arange(len(sizes)), sizes)[:p - pad]
+    return rng.permutation(ids).tolist() + [-1] * pad
+
+
+def _attention_bound_ms(kind, b, p):
+    """Least time for one attention of `kind` over b rows of p slots: q,
+    q_self, k, v, k_self, the masks read once and the output written once;
+    the operations the inputs need: per (query, key) pair a query reaches (a
+    causal query the keys of its step and earlier) and per width 2 FMAs
+    (q . k and the weight times v), per query and key step one same-agent
+    product of the width, 2 operations an FMA (exp and the softmax's
+    bookkeeping not counted)."""
+    tq, tk, causal = ATTN_KINDS[kind]
+    e = ATTN_WIDTH
+    pairs = p * p * (tq * (tq + 1) // 2 if causal else tq * tk)
+    ops = b * (2 * 2 * e * pairs + 2 * e * tq * p * tk)
+    read = b * 4 * (2 * tq * p * e + 3 * tk * p * e + p * p + p)
+    return _bound(read, b * 4 * tq * p * e, ops)
+
+
+def _check_attention(attention, card):
+    """The kernel against its plain version: the three kinds at the serve
+    cell's mean request (ATTN_SERVE_ROWS rows of 32 slots) and at the
+    packed test() row (P = ATTN_PACKED_SLOTS, scene ids), and with an -inf
+    agent mask; returns the largest |kernel - plain|."""
+    import numpy as np
+    import torch
+
+    cases = [(kind, ATTN_SERVE_ROWS, AF_BUCKET, {}) for kind in ATTN_KINDS]
+    cases += [(kind, 1, ATTN_PACKED_SLOTS, {"scenes": _packed_ids(ATTN_PACKED_SLOTS, 5)})
+              for kind in ATTN_KINDS]
+    cases += [(kind, 7, 23, {"cut": True}) for kind in ATTN_KINDS]
+    worst = 0.0
+    for i, (kind, b, p, kw) in enumerate(cases):
+        args = _attention_inputs(kind, b, p, seed=40 + i, **kw)
+        with torch.no_grad():
+            got, want = attention.agent_attention(*args), attention.agent_attention_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(want).all():
+            raise AssertionError(f"agent_attention {kind} {b}x{p}: the plain version is not finite")
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL, rtol=RTOL,
+                                   err_msg=f"agent_attention {kind} {b}x{p} {kw and 'masked'}")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        print(f"agent_attention check {kind} {b}x{p}{' ' + next(iter(kw)) if kw else ''}: "
+              f"max_abs_err={err:.3e}", flush=True)
+    return worst
+
+
+def _attention_times(attention, card):
+    """agent_attention's row: for each kind at the serve cell's mean request
+    and at the packed row, cold and warm device ms by graph replay (two
+    input sets in turn: one encoder set at the request is ~200 MB), the
+    wrapper loop's ms, the plain version's and the bound; and the sums over
+    a forward's six attentions (two of each kind)."""
+    import torch
+
+    out = {}
+    for shape, (b, p, kw) in (("request", (ATTN_SERVE_ROWS, AF_BUCKET, {})),
+                              ("packed", (1, ATTN_PACKED_SLOTS,
+                                          {"scenes": _packed_ids(ATTN_PACKED_SLOTS, 5)}))):
+        rows = {}
+        for kind in ATTN_KINDS:
+            sets = [_attention_inputs(kind, b, p, seed=60 + i, **kw) for i in range(2)]
+            fn = lambda *args: attention.agent_attention(*args)
+            with torch.no_grad():
+                cold_ms = _replay_ms(_capture(fn, sets, ATTN_LAUNCHES), ATTN_LAUNCHES)
+                warm_ms = _replay_ms(_capture(fn, sets[:1], ATTN_LAUNCHES), ATTN_LAUNCHES)
+                call_ms = _call_ms(lambda: fn(*sets[0]), 20)
+                plain_ms = _call_ms(lambda: attention.agent_attention_plain(*sets[0]), 5)
+            bound_ms, bound_by = _attention_bound_ms(kind, b, p)
+            rows[kind] = dict(ms=cold_ms, warm_ms=warm_ms, call_ms=call_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[{card}] agent_attention {kind} {b}x{p} slots: device {cold_ms:.4f} ms at a "
+                  f"cold cache, {warm_ms:.4f} ms L2-warm; wrapper loop {call_ms:.4f} ms a call; "
+                  f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / cold_ms:.1%} of it reached", flush=True)
+            del sets
+            torch.cuda.empty_cache()
+        total = {key: 2 * sum(r[key] for r in rows.values())
+                 for key in ("ms", "warm_ms", "call_ms", "plain_ms", "bound_ms")}
+        print(f"[{card}] agent_attention, a forward's six attentions at {b}x{p} slots: device "
+              f"{total['ms']:.4f} ms cold, {total['warm_ms']:.4f} ms warm; plain "
+              f"{total['plain_ms']:.4f} ms; bound {total['bound_ms']:.4f} ms, "
+              f"{total['bound_ms'] / total['ms']:.1%} of it reached", flush=True)
+        row = dict(total, kernel_ms=total["ms"], bound_by="operations", kinds=rows)
+        if shape == "request":
+            out.update(row)
+        else:
+            out["packed_147"] = row
+    return out
+
+
+def _agentformer_peak(card, tr, whole, bucket, baseline=None):
+    """Peak device memory of one whole-split ET-AgentFormer request at
+    `bucket` slots a scene (max_memory_allocated over the second call);
+    the futures within 1e-5 of `baseline` (the same request at another
+    bucket), where given. Returns (peak bytes, futures)."""
+    import numpy as np
+    import torch
+    from eigentrajectory_tpu_torch.inference import ETPredictor
+
+    predictor = ETPredictor(tr, bucket=bucket)
+    predictor.predict(*whole)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    futures = predictor.predict(*whole)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{card}] agentformer predict() of the whole split ({len(whole[0])} peds, "
+          f"{len(np.unique(whole[1]))} scenes) at bucket={bucket}: peak device memory "
+          f"{peak} B = {peak / 2**30:.3f} GiB (max_memory_allocated; {before} B held before "
+          f"the call)", flush=True)
+    if baseline is not None:
+        np.testing.assert_allclose(futures, baseline, atol=1e-5, rtol=1e-5,
+                                   err_msg=f"agentformer predict() at bucket={bucket}")
+    return peak, futures
+
+
+def _attention_phase(card, attention, tr, whole):
+    """Step 9b: the agent-aware attention kernel against its plain version
+    and its times; the peak memory of the whole-split request at AF_BUCKET
+    and at BUCKET slots (`tr`: the zara2 trainer, `whole`: the request).
+    Returns (row measurements, max abs error)."""
+    err = _check_attention(attention, card)
+    times = _attention_times(attention, card)
+    peak_small, futures = _agentformer_peak(card, tr, whole, AF_BUCKET)
+    peak_large, _ = _agentformer_peak(card, tr, whole, BUCKET, baseline=futures)
+    times.update(peak_bytes_at_bucket_32=peak_small, peak_bytes_at_bucket_128=peak_large)
+    return times, err
+
+
+def _fused_attention(label, attention, fn):
+    """Run fn() with the attention kernel's launch count reset just before
+    it, counting ET-AgentFormer's forwards on the card; each must launch the
+    kernel once for each of its attentions. Returns (fn's result, launches)."""
+    import torch
+    from eigentrajectory_tpu_torch.models import agentformer
+
+    forwards = []
+
+    def note(module, inputs, output):
+        if isinstance(module, agentformer.AgentFormerLight) and \
+                next(module.parameters()).device.type == "cuda":
+            forwards.append(module)
+
+    hook = torch.nn.modules.module.register_module_forward_hook(note)
+    try:
+        attention.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches = attention.LAUNCHES
+    finally:
+        hook.remove()
+    per_forward = agentformer.NLAYER_ENC + 2 * agentformer.NLAYER_DEC
+    if not forwards or launches != per_forward * len(forwards):
+        raise AssertionError(f"agentformer {label}: the attention kernel launched {launches} "
+                             f"times in {len(forwards)} forwards on the card, expected "
+                             f"{per_forward} a forward")
+    print(f"agentformer {label}: agent_attention launches={launches} in {len(forwards)} "
+          f"forwards on the card ({per_forward} a forward)", flush=True)
+    return out, launches
 
 
 def _walkers(n, seed):
@@ -1701,10 +1930,12 @@ def _collated_phase(card, recon, profile_dir):
     return recon_metrics_launches, reconstruct_launches, err, rerr
 
 
-def _agentformer_phase(card, recon, seq_data, profile_dir):
+def _agentformer_phase(card, recon, attention, seq_data, profile_dir):
     """Step 9: ET-AgentFormer (zara2 configuration), then the reference
-    import. Returns the launches of both kernels on its paths and the
-    kernels' max abs errors at its packed shape."""
+    import. Returns the launches of both recon kernels on its paths, the
+    kernels' max abs errors at its packed shape, and the attention kernel's
+    row: step 9b's measurements and error, and its launches on the main
+    paths (the packed test() and predict() at AF_BUCKET)."""
     import numpy as np
     import torch
     from eigentrajectory_tpu_torch.config import load_config
@@ -1729,7 +1960,9 @@ def _agentformer_phase(card, recon, seq_data, profile_dir):
     tr.load_model()
     tr_cpu = ETTorchTrainer(cfg, tag="parity", datasets=splits, device="cpu")
     tr_cpu.load_model()
-    res, n = _packed_test(name, tr, recon, p_eval, n_batches, eval_ped_batch=None)
+    (res, n), attn_launches = _fused_attention(
+        "packed test()", attention,
+        lambda: _packed_test(name, tr, recon, p_eval, n_batches, eval_ped_batch=None))
     recon_metrics_launches += n
     res_cpu = tr_cpu.test()
     tokens = (cfg.k + 2) * p_eval
@@ -1746,8 +1979,11 @@ def _agentformer_phase(card, recon, seq_data, profile_dir):
     requests = {"(a)": (_walkers(5, seed=11), np.zeros(5, np.int64)),
                 "(b)": whole,
                 "(c)": (_walkers(150, seed=13), np.zeros(150, np.int64))}
-    predictor, n = _serve(name, cfg, splits, requests, loose=(), bucket=AF_BUCKET)
+    (predictor, n), launches = _fused_attention(
+        f"predict() at bucket={AF_BUCKET}", attention,
+        lambda: _serve(name, cfg, splits, requests, loose=(), bucket=AF_BUCKET))
     reconstruct_launches += n
+    attn_launches += launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1770,6 +2006,8 @@ def _agentformer_phase(card, recon, seq_data, profile_dir):
     if profile_dir is not None:
         for label, (wall_s, fn) in walls.items():
             _profile(label, fn, card, wall_s, profile_dir)
+    # --- 9b. the attention kernel: checks, times, the request's peak memory ---
+    attn_times, attn_err = _attention_phase(card, attention, tr, whole)
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         # --- 3. training at TRAIN_BATCH pedestrians a packed batch ---
@@ -1857,7 +2095,8 @@ def _agentformer_phase(card, recon, seq_data, profile_dir):
         _, n = _check_test("sgcn imported from the reference's model_best.pth", imported,
                            imported_cpu, recon)
         recon_metrics_launches += n
-    return recon_metrics_launches, reconstruct_launches, err, rerr
+    return (recon_metrics_launches, reconstruct_launches, err, rerr,
+            (attn_times, attn_err, attn_launches))
 
 
 def _near_band_edges(probe):
@@ -3541,7 +3780,7 @@ def main(argv):
     import numpy as np
     from eigentrajectory_tpu_torch.config import load_config
     from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
-    from eigentrajectory_tpu_torch.ops import build, col, group, recon
+    from eigentrajectory_tpu_torch.ops import attention, build, col, group, recon
     from eigentrajectory_tpu_torch.train import ETTorchTrainer
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -3551,7 +3790,8 @@ def main(argv):
     print(card, flush=True)
 
     # --- 1. build: one nvcc for each source, started together ---
-    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE)
+    sources = (recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE,
+               attention.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(build.build, sources))
@@ -3669,7 +3909,8 @@ def main(argv):
     rerrs.append(rerr)
 
     # --- 9. ET-AgentFormer and the reference import ---
-    n_metrics, n_reconstruct, err, rerr = _agentformer_phase(card, recon, data, profile_dir)
+    n_metrics, n_reconstruct, err, rerr, (attn_times, attn_err, attn_launches) = \
+        _agentformer_phase(card, recon, attention, data, profile_dir)
     recon_metrics_launches += n_metrics
     reconstruct_launches += n_reconstruct
     errs.append(err)
@@ -3720,7 +3961,11 @@ def main(argv):
              "all_merge_at_1x256": relabel_times[("all-merge", 1, 2 * BUCKET)]}),
         # No Pallas kernel: metrics.col, which XLA fuses on the TPU.
         row("fused_col", col.SOURCE, "eigentrajectory_tpu/metrics.py:84", col_launches,
-            col_err, col_times)]}))
+            col_err, col_times),
+        # No Pallas kernel: AgentAwareAttention, which XLA computes on the TPU.
+        row("agent_attention", attention.SOURCE,
+            "eigentrajectory_tpu/models/agentformer.py (AgentAwareAttention)",
+            attn_launches, attn_err, attn_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

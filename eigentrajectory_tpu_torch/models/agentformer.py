@@ -34,14 +34,15 @@ takes the rank's rows.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..ops.attention import agent_attention, agent_attention_plain, blend_attention
 from ..parallel import SlotShard
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .common import Dropout, zero_invalid
 
 TF_MODEL_DIM = 256
@@ -75,6 +76,20 @@ def _xavier_linear(in_features: int, out_features: int) -> nn.Linear:
     return layer
 
 
+class AgentMask(NamedTuple):
+    """The masks of one attention of a row, as `ops.attention` takes them:
+    agent_mask (B, n, P) between the queries' and the keys' slots, key_bias
+    (B, P) on the keys' slots, the decoder's block-causal cut, and the
+    queries' slots among the P where they are not 0 .. n - 1 (a rank's).
+    `memo` keeps the plain version's dense masks across the attentions of
+    a forward."""
+    agent_mask: torch.Tensor
+    key_bias: torch.Tensor
+    causal: bool = False
+    q_slots: Optional[torch.Tensor] = None
+    memo: Optional[dict] = None
+
+
 class AgentAwareAttention(nn.Module):
     """Agent-aware multi-head attention over (B, L, E) queries and (B, S, E)
     keys.
@@ -83,6 +98,13 @@ class AgentAwareAttention(nn.Module):
     `in_proj` and q_self, k_self with `in_proj_self`. Cross-attention keeps
     the JAX module's bare (E, 3E) and (E, 2E) kernels, in the JAX layout:
     the queries take their first E columns, the keys the rest.
+
+    The model hands each attention an `AgentMask`. Where no gradient is
+    needed and no dropout is drawn (`predict()`, `test()`), it goes to
+    `ops.attention.agent_attention` (the CUDA kernel on the card); a
+    training step, a slot-split one included, goes to its plain version,
+    which applies the dropout. A dense (L, S) same-agent mask with its
+    (B, L, S) `attn_bias` is taken as well, through the plain blend.
     """
 
     def __init__(self, cross: bool, embed_dim: int = TF_MODEL_DIM,
@@ -102,10 +124,11 @@ class AgentAwareAttention(nn.Module):
         self.out_proj = nn.Linear(e, e)
         self.dropout = Dropout(dropout)
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor, same_agent: torch.Tensor,
-                attn_bias: torch.Tensor, shard: Optional[SlotShard] = None,
+    def forward(self, query: torch.Tensor, key: torch.Tensor, mask,
+                attn_bias: Optional[torch.Tensor] = None, shard: Optional[SlotShard] = None,
                 rows: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
-        # query (B, L, E), key (B, S, E), same_agent (L, S) bool, attn_bias (B, L, S).
+        # query (B, L, E), key (B, S, E); mask an AgentMask, or a dense (L, S)
+        # bool same-agent mask with attn_bias (B, L, S).
         # Under `shard` the key holds this rank's tokens, S is every rank's,
         # and `rows` places the queries among the single process's (Dropout).
         e, h = self.embed_dim, self.num_heads
@@ -124,16 +147,19 @@ class AgentAwareAttention(nn.Module):
         if shard is not None:
             k, v, k_self = shard.gather(torch.cat([k, v, k_self], dim=-1)).split(e, dim=-1)
         q, q_self = q * scaling, q_self * scaling
-
-        def heads(x):                          # (B, L, E) -> (B, H, L, hd)
-            return x.reshape(x.shape[0], x.shape[1], h, hd).transpose(1, 2)
-
-        inter = heads(q) @ heads(k).transpose(-1, -2)               # (B, H, L, S)
-        own = heads(q_self) @ heads(k_self).transpose(-1, -2)
-        m = same_agent.to(inter.dtype)
-        w_att = inter * (1 - m) + own * m + attn_bias[:, None]
-        w_att = self.dropout(torch.softmax(w_att, dim=-1), rows, dim=2)
-        out = (w_att @ heads(v)).transpose(1, 2).reshape(query.shape[0], -1, e)
+        qkv = (q, k, v, q_self, k_self)
+        fused = (attn_bias is None and shard is None
+                 and not (self.training and self.dropout.rate > 0)
+                 and not (torch.is_grad_enabled() and any(x.requires_grad for x in qkv)))
+        count("agentformer.attn_fused" if fused else "agentformer.attn_plain")
+        drop = lambda w_att: self.dropout(w_att, rows, dim=2)
+        if attn_bias is not None:
+            out = blend_attention(*qkv, mask, attn_bias, h, drop)
+        elif fused:
+            out = agent_attention(*qkv, mask.agent_mask, mask.key_bias, h, mask.causal)
+        else:
+            out = agent_attention_plain(*qkv, mask.agent_mask, mask.key_bias, h, mask.causal,
+                                        mask.q_slots, drop, mask.memo)
         return self.out_proj(out)
 
 
@@ -150,8 +176,8 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
         self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(3))
 
-    def forward(self, src, same_agent, attn_bias, shard=None, rows=None):
-        att = self.self_attn(src, src, same_agent, attn_bias, shard, rows)
+    def forward(self, src, mask, attn_bias=None, shard=None, rows=None):
+        att = self.self_attn(src, src, mask, attn_bias, shard, rows)
         src = self.norm1(src + self.drops[0](att, rows))
         h = self.linear2(self.drops[1](torch.relu(self.linear1(src)), rows))
         return self.norm2(src + self.drops[2](h, rows))
@@ -172,10 +198,11 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(TF_MODEL_DIM, eps=LN_EPS)
         self.drops = nn.ModuleList(Dropout(TF_DROPOUT) for _ in range(4))
 
-    def forward(self, tgt, memory, sa_tgt, bias_tgt, sa_mem, bias_mem, shard=None, rows=None):
-        att = self.self_attn(tgt, tgt, sa_tgt, bias_tgt, shard, rows)
+    def forward(self, tgt, memory, mask_tgt, bias_tgt=None, mask_mem=None, bias_mem=None,
+                shard=None, rows=None):
+        att = self.self_attn(tgt, tgt, mask_tgt, bias_tgt, shard, rows)
         tgt = self.norm1(tgt + self.drops[0](att, rows))
-        att = self.multihead_attn(tgt, memory, sa_mem, bias_mem, shard, rows)
+        att = self.multihead_attn(tgt, memory, mask_mem, bias_mem, shard, rows)
         tgt = self.norm2(tgt + self.drops[1](att, rows))
         h = self.linear2(self.drops[2](torch.relu(self.linear1(tgt)), rows))
         return self.norm3(tgt + self.drops[3](h, rows))
@@ -209,14 +236,6 @@ class PosEncodeConcat(nn.Module):
         pe = self.table(t_len, n_agent, x.device, x.dtype)
         h = torch.cat([x, pe.expand(x.shape[0], -1, -1)], dim=-1)
         return self.dropout(self.fc(h), rows)
-
-
-def _same_agent(q_slots: torch.Tensor, tq: int, n_keys: int, tk: int) -> torch.Tensor:
-    """(tq * nq, tk * n_keys) bool: query tokens (the slot of each of the
-    nq queries, `q_slots`, at each of tq steps) against key tokens (n_keys
-    slots at tk steps) of the same agent."""
-    keys = torch.arange(n_keys, device=q_slots.device)
-    return q_slots.repeat(tq)[:, None] == keys.repeat(tk)[None, :]
 
 
 class AgentFormerLight(nn.Module):
@@ -276,37 +295,26 @@ class AgentFormerLight(nn.Module):
                                                       zero)
             if shard is not None:
                 agent_mask = agent_mask[:, q_slots]                             # (B, n, P)
-
-            def pad_bias(tq, tk):
-                # The (n, P) agent mask tiled over tq query and tk key steps,
-                # and the padded key slots masked: (B, tq * n, tk * P).
-                return agent_mask.repeat(1, tq, tk) + key_bias.repeat(1, tk)[:, None]
-
-            sa, bias = _same_agent(q_slots, t, p, t), pad_bias(t, t)
+            # The attentions tile these over the query and key steps themselves.
+            mask = AgentMask(agent_mask, key_bias, False, None if shard is None else q_slots,
+                             {})
 
         # --- context encoder ---
         with span("agentformer.encoder", detail=True):
             x = self.ctx_input_fc(pre_motion.reshape(b, t * n, 1))
             x = self.ctx_pos_encoder(x, t, n, rows_ctx)
             for i in range(NLAYER_ENC):
-                x = getattr(self, f"enc_layer_{i}")(x, sa, bias, shard, rows_ctx)
+                x = getattr(self, f"enc_layer_{i}")(x, mask, shard=shard, rows=rows_ctx)
         context = x                                                             # (B, T*n, E)
 
         # --- future decoder: one causal pass over tf copies of the last token ---
-        with span("agentformer.masks", detail=True):
-            sa_tgt = _same_agent(q_slots, tf, p, tf)
-            causal = torch.where(torch.arange(tf * n, device=dev)[:, None] // n
-                                 >= torch.arange(tf * p, device=dev)[None, :] // p, zero,
-                                 torch.full_like(zero, -math.inf))
-            bias_tgt = causal + pad_bias(tf, tf)
-            sa_mem, bias_mem = _same_agent(q_slots, tf, p, t), pad_bias(tf, t)
         with span("agentformer.decoder", detail=True):
             rows_dec = None if shard is None else (shard.token_rows(tf, dev), tf * p)
             dec_tokens = pre_motion[:, -1].repeat(1, tf, 1)                     # (B, tf*n, 1)
             y = self.dec_pos_encoder(self.dec_input_fc(dec_tokens), tf, n, rows_dec)
             for i in range(NLAYER_DEC):
-                y = getattr(self, f"dec_layer_{i}")(y, context, sa_tgt, bias_tgt, sa_mem,
-                                                    bias_mem, shard, rows_dec)
+                y = getattr(self, f"dec_layer_{i}")(y, context, mask._replace(causal=True),
+                                                    mask_mem=mask, shard=shard, rows=rows_dec)
             seq_out = y @ self.out_fc_kernel + self.out_fc_bias                  # (B, tf*n, s)
         return seq_out.reshape(b, tf, n, self.forecast_dim).transpose(1, 2)      # (B, n, tf, s)
 

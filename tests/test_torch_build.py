@@ -2,7 +2,10 @@
 hash of its source, of the headers the source includes from csrc/ (directly
 or through another header) and of the compiler's flags, so that an edit to
 any of them builds anew and no stale library is loaded. Needs no nvcc."""
+import ctypes
 import os
+import re
+import types
 
 import pytest
 
@@ -61,7 +64,8 @@ def test_the_kernels_share_one_header():
 
 @pytest.mark.parametrize("source,headers", [("reconstruct.cu", ["recon_tile.cuh"]),
                                             ("recon_metrics.cu", ["recon_tile.cuh"]),
-                                            ("group_relabel.cu", []), ("col.cu", [])])
+                                            ("group_relabel.cu", []), ("col.cu", []),
+                                            ("agent_attention.cu", [])])
 def test_each_kernel_source_is_hashed_with_its_headers(source, headers):
     """Every source the wrappers build: the files its hash covers, and a
     library of its own name."""
@@ -72,7 +76,32 @@ def test_each_kernel_source_is_hashed_with_its_headers(source, headers):
 
 
 def test_the_wrappers_build_every_source_under_csrc():
-    from eigentrajectory_tpu_torch.ops import col, group, recon
+    from eigentrajectory_tpu_torch.ops import attention, col, group, recon
 
-    built = {recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE}
+    built = {recon.SOURCE, recon.RECONSTRUCT_SOURCE, group.SOURCE, col.SOURCE, attention.SOURCE}
     assert built == {name for name in os.listdir(build.CSRC_DIR) if name.endswith(".cu")}
+
+
+def _c_parameters(source, fn):
+    """The C types of the parameters of `extern "C" int fn(...)` in `source`."""
+    with open(os.path.join(build.CSRC_DIR, source)) as f:
+        found = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", f.read())
+    return [" ".join(p.split()).rsplit(" ", 1)[0] for p in found.group(1).split(",")]
+
+
+@pytest.mark.parametrize("module,fn", [("attention", "et_agent_attention"), ("col", "et_col")])
+def test_the_wrappers_declare_the_c_signatures(monkeypatch, module, fn):
+    """The ctypes argument types a wrapper sets are the C entry point's, one
+    for one (pointers as void pointers); checked without nvcc."""
+    import importlib
+
+    wrapper = importlib.import_module(f"eigentrajectory_tpu_torch.ops.{module}")
+    entry = lambda: types.SimpleNamespace(argtypes=None, restype=None)
+    lib = types.SimpleNamespace(**{fn: entry(), "et_cuda_error_string": entry()})
+    monkeypatch.setattr(build, "load", lambda source: lib)
+    wrapper._library()
+    c_type = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    want = [ctypes.c_void_p if t.endswith("*") else c_type[t]
+            for t in _c_parameters(wrapper.SOURCE, fn)]
+    assert getattr(lib, fn).argtypes == want
+    assert getattr(lib, fn).restype == ctypes.c_int

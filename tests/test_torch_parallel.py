@@ -58,7 +58,7 @@ from eigentrajectory_tpu_torch.data.synthetic import make_synthetic_data
 from eigentrajectory_tpu_torch.etspace.facade import et_forward, row_center
 from eigentrajectory_tpu_torch.inference import ETPredictor
 from eigentrajectory_tpu_torch.models.gpgraph_common import find_group_indices
-from eigentrajectory_tpu_torch.ops import col, group, recon
+from eigentrajectory_tpu_torch.ops import attention, col, group, recon
 from eigentrajectory_tpu_torch.train import ETTorchTrainer
 # By their names in this directory (pytest puts it on sys.path): the
 # machine with the card has a `tests` package of its own installed.
@@ -724,6 +724,8 @@ def test_each_kernel_wrapper_launches_under_its_tensors_device(monkeypatch):
     monkeypatch.setattr(group, "_check_args", lambda merge, valid: valid.shape)
     monkeypatch.setattr(col, "_library", lambda: lib)
     monkeypatch.setattr(col, "_check_args", lambda recon, valid, gather: (20, 6, 2, 3))
+    monkeypatch.setattr(attention, "_library", lambda: lib)
+    monkeypatch.setattr(attention, "_check_args", lambda *a: (1, 2, 2, 32, 1, 1))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0})())
     c = torch.zeros(6, 4, 20)
@@ -731,8 +733,11 @@ def test_each_kernel_wrapper_launches_under_its_tensors_device(monkeypatch):
     recon._launch_reconstruct(c, c, *(torch.zeros(1),) * 6)
     group._launch(torch.zeros(2, 3, 3, dtype=torch.bool), torch.zeros(2, 3, dtype=torch.bool))
     col._launch(torch.zeros(20, 6, 12, 2), torch.zeros(2, 3, dtype=torch.bool), None)
+    x = torch.zeros(1, 2, 32)
+    attention._launch(x, x, x, x, x, torch.zeros(1, 1, 1), torch.zeros(1, 1), 1, False)
     assert [name for name, _ in lib.calls] == ["et_recon_metrics", "et_reconstruct",
-                                               "et_group_relabel", "et_col"]
+                                               "et_group_relabel", "et_col",
+                                               "et_agent_attention"]
     assert all(active == [torch.device("cpu")] for _, active in lib.calls)
     assert contexts.active == []
 

@@ -31,14 +31,14 @@ ET = ("et.project", "et.predictor", "et.refine")
 # opens it. The detail spans are the `et.*` and `agentformer.*` ones.
 SERVE = {"serve.pad": (None, 1), "serve.to_device": (None, 1), "serve.et_forward": (None, 1),
          **{name: ("serve.et_forward", 1) for name in ET},
-         "agentformer.masks": ("et.predictor", 2), "agentformer.encoder": ("et.predictor", 1),
+         "agentformer.masks": ("et.predictor", 1), "agentformer.encoder": ("et.predictor", 1),
          "agentformer.decoder": ("et.predictor", 1), "serve.gather": (None, 1),
          "serve.reconstruct": (None, 1), "serve.to_host": (None, 1)}
 EVAL = {"data.pad": (None, 1), "eval.to_device": (None, 1), "eval.et_forward": (None, 1),
         **{name: ("eval.et_forward", 1) for name in ET},
         "eval.recon_metrics": (None, 1), "eval.col": (None, 1), "eval.to_host": (None, 1),
         "eval.meters": (None, 1)}
-PACKED_EVAL = {**EVAL, "agentformer.masks": ("et.predictor", 2),
+PACKED_EVAL = {**EVAL, "agentformer.masks": ("et.predictor", 1),
                "agentformer.encoder": ("et.predictor", 1),
                "agentformer.decoder": ("et.predictor", 1)}
 
